@@ -1,0 +1,3 @@
+from .graph_build import add_edge_lengths, compute_edges, radius_graph
+
+__all__ = ["add_edge_lengths", "compute_edges", "radius_graph"]
