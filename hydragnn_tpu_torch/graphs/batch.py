@@ -37,8 +37,11 @@ class GraphBatch:
       edge_mask:      [E_pad] bool, True for real edges.
       graph_mask:     [G_pad] bool, True for real graphs.
       targets:        one entry per head ([G_pad, dim] or [N_pad, dim]).
-      row_ptr:        [N_pad + 1] int32 CSR boundaries over ``receivers``.
-      graph_ptr:      [G_pad + 1] int32 CSR boundaries over ``node_graph``.
+      row_ptr:        [N_pad + 1] int32 CSR boundaries over ``receivers``,
+                      or None: the segment ops then take the unsorted-id
+                      kernel (``ops/segment_sum_count.py``).
+      graph_ptr:      [G_pad + 1] int32 CSR boundaries over ``node_graph``,
+                      or None, likewise.
       num_graphs_pad: plain int (G_pad).
     """
 
@@ -62,6 +65,10 @@ class GraphBatch:
     @property
     def num_edges_pad(self) -> int:
         return int(self.senders.shape[0])
+
+    def count_real_graphs(self):
+        """Number of real graphs (``graph_mask`` set), on the batch's device."""
+        return self.graph_mask.sum()
 
     def _map(self, fn) -> "GraphBatch":
         def opt(v):

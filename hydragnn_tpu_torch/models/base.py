@@ -1,7 +1,8 @@
 """HydraGNN multi-headed GNN for ``conv_type="PNA"``.
 
   encoder:  num_conv_layers × [conv → MaskedBatchNorm → ReLU]
-  readout:  masked mean over each graph's nodes (``graph_ptr`` runs)
+  readout:  masked mean over each graph's nodes (``graph_ptr`` runs, or
+            the unsorted-id kernel when the batch carries no pointers)
   heads:    graph heads = shared MLP (``graph_shared``) + per-head MLP;
             node heads = one MLP shared across nodes (``type: "mlp"``).
 
@@ -144,7 +145,9 @@ class HydraGNN(nn.Module):
 
     def forward(self, batch: GraphBatch) -> List[torch.Tensor]:
         """Per-head outputs: graph heads ``[G_pad, dim]``, node heads
-        ``[N_pad, dim]``; rows outside the masks are padding."""
+        ``[N_pad, dim]``; rows outside the masks are padding. In train mode
+        the batch norms use the masked batch moments and update their
+        running averages in place."""
         x = batch.node_features
         edge_attr = batch.edge_features if self.use_edge_attr else None
         for i in range(self.num_conv_layers):

@@ -3,8 +3,9 @@
 Call convention: ``y = conv(x, senders, receivers, edge_attr, edge_mask,
 node_mask, row_ptr)`` with ``x [N_pad, F]``, ``senders``/``receivers``
 ``[E_pad]`` int, ``edge_attr [E_pad, D]`` or None and ``row_ptr [N_pad + 1]``
-int32 (the CSR contract, ``graphs/csr.py``). The aggregation's (sum, count)
-passes run through ``ops/csr_segment.py``.
+int32 (the CSR contract, ``graphs/csr.py``) or None. The aggregation's
+(sum, count) passes run through ``ops/csr_segment.py``: the CSR kernel with
+``row_ptr``, the unsorted-id kernel without it.
 """
 
 from __future__ import annotations

@@ -1,2 +1,2 @@
-"""Segment ops: plain masked PyTorch (``segment``) and the CSR kernel path
-(``csr_segment``)."""
+"""Segment ops: plain masked PyTorch (``segment``), the CSR kernel and the
+fused ops (``csr_segment``), the unsorted-id kernel (``segment_sum_count``)."""

@@ -1,7 +1,7 @@
 """Builds the port's CUDA kernels with ``nvcc`` and loads them with ``ctypes``.
 
-Each ``csrc/<name>.cu`` compiles into a shared library with a plain C
-interface:
+Each ``csrc/<name>.cu`` (with the ``csrc/*.cuh`` headers it includes)
+compiles into a shared library with a plain C interface:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -Xptxas -v -o _build/lib<name>-<hash>.so csrc/<name>.cu
@@ -45,10 +45,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the build of ``csrc/<name>.cu`` lives, keyed by its source."""
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """Where the build of ``csrc/<name>.cu`` lives, keyed by its source and
+    every header beside it (``csrc/*.cuh``, which the sources include)."""
+    digest = hashlib.sha256()
+    for src in [CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))]:
+        digest.update(src.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Tuple[Path, str, float]:

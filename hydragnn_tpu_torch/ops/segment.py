@@ -4,8 +4,8 @@ Each op takes a static ``num_segments`` and an optional boolean ``mask`` over
 the data rows. Sums go through ``index_add_``, extrema through
 ``scatter_reduce(..., include_self=False)``. These are the port's
 counterpart of the reference's XLA segment ops (not kernels): the model's
-``row_ptr``-carrying traffic goes through ``ops/csr_segment.py`` instead,
-and min/max always come from here.
+sums, means and stds go through ``ops/csr_segment.py`` (the kernels, with
+or without ``row_ptr``) instead, and min/max always come from here.
 """
 
 from __future__ import annotations

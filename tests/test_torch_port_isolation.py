@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: ``hydragnn_tpu_torch`` and ``chip_smoke.py``
-import nothing of JAX or of the JAX package, and ``chip_smoke.py`` refuses
-to run without a CUDA device instead of falling back to the CPU."""
+import nothing of JAX or of the JAX package, nor ``msgpack`` or ``sklearn``
+(the card's machine has neither), and ``chip_smoke.py`` refuses to run
+without a CUDA device instead of falling back to the CPU."""
 
 import ast
 import os
@@ -13,7 +14,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PACKAGE = ROOT / "hydragnn_tpu_torch"
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "msgpack", "hydragnn_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "msgpack", "sklearn", "hydragnn_tpu"}
 
 
 def _sources():
@@ -38,24 +39,34 @@ def pytest_no_forbidden_imports(path):
 
 def pytest_package_imports_with_jax_blocked():
     """Every module of the port imports in a fresh interpreter in which
-    ``jax``, ``flax`` and ``hydragnn_tpu`` cannot be imported."""
+    ``jax``, ``flax``, ``msgpack``, ``sklearn`` and ``hydragnn_tpu`` cannot
+    be imported; the walk reaches every sub-package, ``train`` included."""
     code = (
         "import sys, importlib, pkgutil\n"
-        "for m in ('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'hydragnn_tpu'):\n"
+        "for m in %r:\n"
         "    sys.modules[m] = None\n"
         "import hydragnn_tpu_torch as p\n"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
         "assert 'jax' not in {k for k, v in sys.modules.items() if v is not None}\n"
-        "print(len(names))\n"
-    )
+        "print(' '.join(names))\n"
+    ) % (tuple(sorted(FORBIDDEN)),)
     out = subprocess.run(
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=240,
         env={**os.environ, "PYTHONPATH": str(ROOT)},
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip().splitlines()[-1]) >= 15
+    names = set(out.stdout.strip().splitlines()[-1].split())
+    on_disk = {
+        "hydragnn_tpu_torch." + ".".join(p.relative_to(PACKAGE).with_suffix("").parts)
+        for p in PACKAGE.rglob("*.py")
+        if p.name != "__init__.py"
+    }
+    assert on_disk <= names, sorted(on_disk - names)
+    assert {"hydragnn_tpu_torch.train.trainer", "hydragnn_tpu_torch.train.train_validate_test",
+            "hydragnn_tpu_torch.utils.optimizer", "hydragnn_tpu_torch.preprocess.dataloader",
+            "hydragnn_tpu_torch.ops.segment_sum_count"} <= names
 
 
 @pytest.mark.parametrize("where", ["repo", "alone"])

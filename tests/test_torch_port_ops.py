@@ -96,7 +96,7 @@ def pytest_csr_sum_count_plain_matches_jax_kernel(f):
         interpret=True,
     )
     ts, tc = tcs.csr_segment_sum_count(
-        torch.from_numpy(data), torch.from_numpy(row_ptr), n
+        torch.from_numpy(data), torch.from_numpy(row_ptr), torch.from_numpy(ids), n
     )
     assert ts.dtype == torch.float32 and tc.dtype == torch.float32
     assert ts.shape == (n, f) and tc.shape == (n,)
@@ -118,20 +118,23 @@ def pytest_csr_sum_count_walks_only_the_runs():
     contribute nothing; zero segments give empty outputs."""
     data = torch.arange(12, dtype=torch.float32).reshape(6, 2)
     row_ptr = torch.tensor([1, 3, 3, 5], dtype=torch.int32)
-    s, c = tcs.csr_segment_sum_count(data, row_ptr, 3)
+    ids = torch.tensor([0, 0, 0, 2, 2, 2], dtype=torch.int32)
+    s, c = tcs.csr_segment_sum_count(data, row_ptr, ids, 3)
     np.testing.assert_array_equal(s.numpy(), [[2 + 4, 3 + 5], [0, 0], [6 + 8, 7 + 9]])
     np.testing.assert_array_equal(c.numpy(), [2, 0, 2])
-    s0, c0 = tcs.csr_segment_sum_count(data, torch.zeros(1, dtype=torch.int32), 0)
+    s0, c0 = tcs.csr_segment_sum_count(data, torch.zeros(1, dtype=torch.int32), ids, 0)
     assert s0.shape == (0, 2) and c0.shape == (0,)
 
 
 @pytest.mark.parametrize(
     "bad",
-    ["data_dtype", "data_rank", "noncontig", "ptr_dtype", "ptr_len", "ptr_noncontig"],
+    ["data_dtype", "data_rank", "noncontig", "ptr_dtype", "ptr_len", "ptr_noncontig",
+     "ids_dtype", "ids_len"],
 )
 def pytest_csr_sum_count_rejects_bad_inputs(bad):
     data = torch.zeros(10, 4)
     row_ptr = torch.tensor([0, 4, 10], dtype=torch.int32)
+    ids = torch.tensor([0] * 4 + [1] * 6, dtype=torch.int32)
     n = 2
     if bad == "data_dtype":
         data = data.double()
@@ -145,8 +148,12 @@ def pytest_csr_sum_count_rejects_bad_inputs(bad):
         n = 3
     elif bad == "ptr_noncontig":
         row_ptr = torch.tensor([[0, 9], [4, 9], [10, 9]], dtype=torch.int32)[:, 0]
+    elif bad == "ids_dtype":
+        ids = ids.float()
+    elif bad == "ids_len":
+        ids = ids[:-1]
     with pytest.raises((TypeError, ValueError)):
-        tcs.csr_segment_sum_count(data, row_ptr, n)
+        tcs.csr_segment_sum_count(data, row_ptr, ids, n)
 
 
 def pytest_csr_sum_count_cpu_never_touches_the_kernel(monkeypatch):
@@ -158,7 +165,9 @@ def pytest_csr_sum_count_cpu_never_touches_the_kernel(monkeypatch):
     monkeypatch.setattr(tcs, "_kernel", refuse)
     before = tcs.KERNEL_LAUNCHES
     ids, data, _, row_ptr, _ = _csr_case(0, 200, 40, 8)
-    tcs.csr_segment_sum_count(torch.from_numpy(data), torch.from_numpy(row_ptr), 40)
+    tcs.csr_segment_sum_count(
+        torch.from_numpy(data), torch.from_numpy(row_ptr), torch.from_numpy(ids), 40
+    )
     assert tcs.KERNEL_LAUNCHES == before
 
 
@@ -270,14 +279,35 @@ def pytest_pna_aggregate_matches_jax(monkeypatch, pallas, aggregators):
     "op", ["fused_segment_sum_count", "fused_segment_sum", "fused_segment_mean",
            "fused_segment_stats"],
 )
-def pytest_fused_ops_require_row_ptr(op):
-    """The fused ops have one route, the CSR kernel: without ``row_ptr``
-    they refuse rather than fall back to another aggregation."""
-    _, t, n, _ = _inputs(17)
-    with pytest.raises(TypeError, match="row_ptr"):
-        getattr(tcs, op)(t["data"], t["ids"], n, mask=t["mask"])
-    with pytest.raises(TypeError, match="row_ptr"):
-        tcs.pna_aggregate(t["data"], t["ids"], n, ("mean",), mask=t["mask"])
+def pytest_fused_ops_require_row_ptr(monkeypatch, op):
+    """``row_ptr`` picks the kernel: with it every pass is the CSR kernel,
+    without it every pass is the unsorted-id kernel (``segment_sum_count``)
+    with masked rows at id -1; neither route falls back to the plain
+    segment ops."""
+    _, t, n, real = _inputs(17)
+    calls = {"csr": 0, "ssc": 0}
+
+    def spy(name, fn):
+        def wrapped(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        return wrapped
+
+    monkeypatch.setattr(tcs, "csr_segment_sum_count_forward",
+                        spy("csr", tcs.csr_segment_sum_count_forward))
+    monkeypatch.setattr(tcs.ssc, "segment_sum_count_forward",
+                        spy("ssc", tcs.ssc.segment_sum_count_forward))
+    monkeypatch.setattr(tcs.seg, "segment_sum", None)
+    with_ptr = getattr(tcs, op)(t["data"], t["ids"], n, mask=t["mask"], row_ptr=t["row_ptr"])
+    passes = 2 if op == "fused_segment_stats" else 1
+    assert calls == {"csr": passes, "ssc": 0}
+    without = getattr(tcs, op)(t["data"], t["ids"], n, mask=t["mask"])
+    assert calls == {"csr": passes, "ssc": passes}
+    for a, b in zip(with_ptr if isinstance(with_ptr, tuple) else (with_ptr,),
+                    without if isinstance(without, tuple) else (without,)):
+        np.testing.assert_allclose(a.numpy()[:real], b.numpy()[:real], rtol=RTOL, atol=ATOL)
+    tcs.pna_aggregate(t["data"], t["ids"], n, ("mean",), mask=t["mask"])
+    assert calls["ssc"] == passes + 1
 
 
 def pytest_segment_extrema_matches_jax():
