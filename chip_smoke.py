@@ -10,8 +10,10 @@ prints no result line):
    the CUDA kernels built from ``hydragnn_tpu_torch/ops/csrc`` with
    ``nvcc``, one compiler per source, all started together;
 2. each kernel against its plain PyTorch version on the card, at the shapes
-   the flagship model gives it and at edge cases: K1 (CSR runs) and the
-   unsorted-id kernel (K2/K3: batches without CSR pointers);
+   the flagship model gives it and at edge cases: K1 (CSR runs), the
+   unsorted-id kernel (K2/K3: batches without CSR pointers) and, in 2c, the
+   block-skip kernel (K4: batches without CSR pointers under
+   ``HYDRAGNN_PALLAS_SKIP=1``), also against K2/K3;
 3. serving: the flagship PNA model (hidden 64, 3 layers, graph + node
    heads, random weights from seed 0) behind ``InferenceEngine`` answers
    three 256-graph ``predict`` calls and 8 lone ``submit`` calls; every
@@ -31,10 +33,16 @@ prints no result line):
    kink (see :class:`Kinks`), and on a batch without CSR pointers against the
    CSR step;
 6. times: each kernel, its plain version, ``index_add_`` over the kept
-   rows and the memory bound at the flagship shapes, the engine's batch
-   latency, the train
+   rows and the memory bound at the flagship shapes (K4 beside K2/K3 on the
+   same ids), the engine's batch latency, the train
    step, and the device's busy time and idle share of a forward and of a
-   train step (``torch.profiler``).
+   train step (``torch.profiler``);
+7. the other conv families (SAGE, GIN, MFC, GAT, CGCNN) at the flagship's
+   widths: each serves a 256-graph batch through ``InferenceEngine``
+   (card vs CPU), runs the same batch without CSR pointers under
+   ``HYDRAGNN_PALLAS_SKIP=1`` (K4 only), takes one train step card vs CPU
+   (GAT's dropout at 0) and trains 3 epochs through ``TrainingDriver``
+   with its defaults, its loss falling.
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Needs one CUDA device; without one it
@@ -46,6 +54,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -70,15 +79,27 @@ PNA_DEG = [0, 0, 1, 2, 4, 8, 8, 4, 2, 1]
 LAYERS = 3
 N_LO, N_HI = 12, 26  # nodes per graph, QM9-like
 RADIUS, MAX_NEIGHBOURS = 1.2, 20
-LAUNCHES_PER_FORWARD = 2 * LAYERS + 1
 
 # H100 SXM data-sheet peaks (the bound is against these, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 RTOL, ATOL = 1e-4, 1e-5  # port on the card vs the same model on the CPU
 ROUNDING_LEVEL = 1e-6  # a gradient this far below the step's largest is noise
-KERNELS = ("csr_segment", "segment_sum_count")
+KERNELS = ("csr_segment", "segment_sum_count", "segment_skip")
 TRAIN_BATCHES, EVAL_BATCHES, EPOCHS, BATCH_GRAPHS = 8, 2, 3, 256
+FAMILIES = ("SAGE", "GIN", "MFC", "GAT", "CGCNN")
+FAMILY_TRAIN_BATCHES = 4
+GAT_HEADS = 6
+
+
+def launches_per_forward(family):
+    """(sum, count) kernel calls of one forward: one aggregation per layer
+    (GAT two: the softmax denominator and the weighted sum; PNA two: the
+    mean and the centred-std passes) and the readout pool."""
+    return (2 if family in ("GAT", "PNA") else 1) * LAYERS + 1
+
+
+LAUNCHES_PER_FORWARD = launches_per_forward("PNA")
 
 
 def make_graphs(count, rng):
@@ -105,16 +126,30 @@ def unlabeled(graphs):
             for s in graphs]
 
 
-def build_model(hidden, device):
+def build_model(hidden, device, family="PNA", **kw):
     import torch
 
     from hydragnn_tpu_torch.models import create_model
 
     return create_model(
-        "PNA", 1, hidden, DIMS, TYPES, HEADS, [1.0, 1.0], LAYERS,
-        edge_dim=1, pna_deg=PNA_DEG, device=device,
-        generator=torch.Generator().manual_seed(0),
+        family, 1, hidden, DIMS, TYPES, HEADS, [1.0, 1.0], LAYERS,
+        edge_dim=1, pna_deg=PNA_DEG, max_neighbours=MAX_NEIGHBOURS, device=device,
+        generator=torch.Generator().manual_seed(0), **kw,
     )
+
+
+@contextlib.contextmanager
+def skip_switch():
+    """``HYDRAGNN_PALLAS_SKIP=1`` inside the block, as it was after."""
+    before = os.environ.get("HYDRAGNN_PALLAS_SKIP")
+    os.environ["HYDRAGNN_PALLAS_SKIP"] = "1"
+    try:
+        yield
+    finally:
+        if before is None:
+            del os.environ["HYDRAGNN_PALLAS_SKIP"]
+        else:
+            os.environ["HYDRAGNN_PALLAS_SKIP"] = before
 
 
 def check_outputs(results, graphs, where):
@@ -145,31 +180,32 @@ def zero_counts():
     csr_segment.KERNEL_LAUNCHES = 0
     ssc.KERNEL_LAUNCHES = 0
     ssc.WIDE_LAUNCHES = 0
+    ssc.SKIP_LAUNCHES = 0
 
 
 def read_counts():
-    """Launches since :func:`zero_counts`: K1, the unsorted-id kernel, and
-    of those the launches at F > 64."""
+    """Launches since :func:`zero_counts`: K1, the unsorted-id kernel (and
+    of those the launches at F > 64), and the block-skip kernel K4."""
     from hydragnn_tpu_torch.ops import csr_segment
     from hydragnn_tpu_torch.ops import segment_sum_count as ssc
 
     return {"k1": csr_segment.KERNEL_LAUNCHES, "k2": ssc.KERNEL_LAUNCHES,
-            "wide": ssc.WIDE_LAUNCHES}
+            "wide": ssc.WIDE_LAUNCHES, "k4": ssc.SKIP_LAUNCHES}
 
 
-def counted(run, where, k1, k2, wide=0):
+def counted(run, where, k1, k2, wide=0, k4=0):
     """``run()`` with every count zeroed just before; raises unless the
-    counts read just after are exactly (k1, k2, wide)."""
+    counts read just after are exactly (k1, k2, wide, k4)."""
     zero_counts()
     out = run()
     got = read_counts()
-    want = {"k1": k1, "k2": k2, "wide": wide}
+    want = {"k1": k1, "k2": k2, "wide": wide, "k4": k4}
     if got != want:
         raise AssertionError(f"{where}: kernel launches {got} != {want}")
     return out, got
 
 
-def serve_with_counts(engine, calls):
+def serve_with_counts(engine, calls, per_forward=LAUNCHES_PER_FORWARD):
     """Run ``calls(engine)`` with the kernels' launch counts zeroed just
     before; returns (result, K1 launches, batch forwards)."""
     before = engine.batches_run
@@ -177,11 +213,21 @@ def serve_with_counts(engine, calls):
     out = calls(engine)
     counts = read_counts()
     batches = engine.batches_run - before
-    if batches == 0 or counts != {"k1": LAUNCHES_PER_FORWARD * batches, "k2": 0, "wide": 0}:
+    if batches == 0 or counts != {"k1": per_forward * batches, "k2": 0, "wide": 0, "k4": 0}:
         raise AssertionError(
-            f"kernel launches {counts} != {LAUNCHES_PER_FORWARD} x {batches} batch forwards of K1"
+            f"kernel launches {counts} != {per_forward} x {batches} batch forwards of K1"
         )
     return out, counts["k1"], batches
+
+
+def as_double(batch):
+    """The same CPU batch with its float fields in float64."""
+    out = copy.copy(batch)
+    out.node_features = batch.node_features.double()
+    if batch.edge_features is not None:
+        out.edge_features = batch.edge_features.double()
+    out.targets = tuple(t.double() for t in batch.targets)
+    return out
 
 
 def without_pointers(batch):
@@ -198,30 +244,60 @@ def real_rows(outputs, host):
             for o, t in zip(outputs, TYPES)]
 
 
-def grad_gap(got, want, names):
-    """(max over every gradient entry of |got - want| / (1e-4 |want| + 1e-5
-    max|g|), the parameter where it is reached, the parameters held to the
-    step's scale); <= 1 passes. The backward's ``index_add_`` (the gather of
-    the message inputs) sums in a varying order on the card. ``max|g|`` is
-    each tensor's own largest entry, except for a tensor whose reference
-    gradient is at rounding level (its largest entry below ``ROUNDING_LEVEL``
-    x the step's largest): it is held to the step's largest entry. Each
-    conv's last bias is such a tensor: its gradient is zero analytically
-    (the train-mode batch norm after it subtracts the batch mean), so what
-    either side holds is rounding noise."""
+def tensor_gaps(got, want, names, widen=None):
+    """Per parameter, max over its gradient entries of |got - want| / (1e-4
+    |want| + 1e-5 max|g|); <= 1 passes. ``max|g|`` is the tensor's own
+    largest entry of ``want``, except for a tensor whose gradient is at
+    rounding level (its largest entry below ``ROUNDING_LEVEL`` x the step's
+    largest): it is held to the step's largest entry. Each conv's last bias
+    is such a tensor: its gradient is zero analytically (the train-mode
+    batch norm after it subtracts the batch mean), so what either side
+    holds is rounding noise. ``widen`` multiplies a tensor's ``max|g|`` (see
+    :func:`f32_widening`). Returns ([(name, gap)], the rounding-level
+    tensors)."""
     got = [a.detach().double().cpu() for a in got]
     want = [b.detach().double().cpu() for b in want]
     step = max(float(b.abs().max()) for b in want)
-    worst, where, noise = 0.0, None, []
+    gaps, noise = [], []
     for name, a, b in zip(names, got, want):
         own = float(b.abs().max())
         if own < ROUNDING_LEVEL * step:
             noise.append(f"{name} ({own / step:.1e})")
             own = step
-        gap = float(((a - b).abs() / (1e-4 * b.abs() + 1e-5 * own)).max())
-        if gap >= worst:
-            worst, where = gap, name
+        own *= (widen or {}).get(name, 1.0)
+        gaps.append((name, float(((a - b).abs() / (1e-4 * b.abs() + 1e-5 * own)).max())))
+    return gaps, noise
+
+
+def grad_gap(got, want, names, widen=None):
+    """(the largest of :func:`tensor_gaps`, the parameter where it is
+    reached, the rounding-level tensors). The backward's ``index_add_``
+    (the gather of the message inputs) sums in a varying order on the
+    card."""
+    gaps, noise = tensor_gaps(got, want, names, widen)
+    where, worst = max(reversed(gaps), key=lambda g: g[1])
     return worst, where, noise
+
+
+F32_HEADROOM = 6.0  # tolerance / the CPU's own f32 miss, where that miss is large
+
+
+def f32_widening(cpu_grads, truth_grads, names):
+    """``{name: factor}`` for the tensors that f32 arithmetic cannot hold to
+    their own scale: those on which the CPU's f32 gradient is further than
+    ``1 / F32_HEADROOM`` of the tolerance from the f64 gradient of the same
+    step (same weights, batch and kink sides). A gradient that sums many
+    terms which cancel (GAT's first ``lin_src.bias``: its message path adds
+    a constant per channel that the batch norm removes, so ~4700 node terms
+    cancel to a small remainder; GIN's ``eps``) carries an f32 rounding
+    error of the terms' size, not of its own. The card's error there varies
+    from run to run (its backward's ``index_add_`` adds in a varying order)
+    and has read up to 3x the CPU's one sampled miss. Such a tensor's
+    ``max|g|`` is widened by ``F32_HEADROOM x`` that miss, the scale at
+    which the CPU's own f32 result uses ``1 / F32_HEADROOM`` of the
+    tolerance; every other tensor keeps its own scale."""
+    gaps, _ = tensor_gaps(cpu_grads, truth_grads, names)
+    return {name: F32_HEADROOM * gap for name, gap in gaps if gap * F32_HEADROOM > 1.0}
 
 
 def extrema_selections(data, ids, mn, mx):
@@ -270,40 +346,58 @@ def _replayed_functions():
             (active,) = ctx.saved_tensors
             return torch.where(active, d_y, torch.zeros((), dtype=d_y.dtype)), None
 
-    return ReplayedExtrema, ReplayedRelu
+    class ReplayedLeakyRelu(torch.autograd.Function):
+        """Leaky ReLU whose backward takes slope 1 where ``active`` says and
+        ``slope`` elsewhere."""
+
+        @staticmethod
+        def forward(ctx, x, active, slope):
+            ctx.save_for_backward(active)
+            ctx.slope = slope
+            return torch.where(x > 0, x, x * slope)
+
+        @staticmethod
+        def backward(ctx, d_y):
+            (active,) = ctx.saved_tensors
+            return torch.where(active, d_y, d_y * ctx.slope), None, None
+
+    return ReplayedExtrema, ReplayedRelu, ReplayedLeakyRelu
 
 
 class Kinks:
-    """The model is piecewise smooth: ReLU bends at 0, and min/max change
-    rows where two rows of a segment tie. A pre-activation within rounding
+    """The model is piecewise smooth: ReLU and leaky ReLU bend at 0, and
+    min/max change rows where two rows of a segment tie. A pre-activation within rounding
     of 0, or a near tie, that f32 rounding puts on one side on the card and
     on the other side on the CPU (their matmuls add in different orders)
     moves a whole cotangent: both gradients are the reference's
     subgradient, yet they differ far beyond rounding. So the card's train
     step is held to a CPU step that takes the card's side at every kink.
-    Inside :meth:`record`, each ``torch.relu`` call keeps which entries are
-    active and each ``segment_extrema`` call which rows attain the extrema
-    (in call order, on the CPU); inside :meth:`replay` each backward takes
-    the recorded ones, and ``differ`` counts the entries where the CPU's own
-    were others."""
+    Inside :meth:`record`, each ``torch.relu`` and
+    ``torch.nn.functional.leaky_relu`` call keeps which entries are active
+    and each ``segment_extrema`` call which rows attain the extrema (in call
+    order, on the CPU); inside :meth:`replay` each backward takes the
+    recorded ones, and ``differ`` counts the entries where the CPU's own
+    were others (leaky ReLU's under "relu")."""
 
     def __init__(self):
         self.sides = []
         self.differ = {"relu": 0, "min/max": 0}
 
     @contextlib.contextmanager
-    def _patched(self, relu, extrema):
+    def _patched(self, relu, extrema, leaky):
         import torch
+        from torch.nn import functional
 
         from hydragnn_tpu_torch.ops import csr_segment
 
-        originals = torch.relu, csr_segment.segment_extrema
+        originals = torch.relu, csr_segment.segment_extrema, functional.leaky_relu
         torch.relu = lambda x: relu(originals[0], x)
         csr_segment.segment_extrema = lambda data, ids, n: extrema(originals[1], data, ids, n)
+        functional.leaky_relu = lambda x, slope=0.01: leaky(originals[2], x, slope)
         try:
             yield self
         finally:
-            torch.relu, csr_segment.segment_extrema = originals
+            torch.relu, csr_segment.segment_extrema, functional.leaky_relu = originals
 
     def record(self):
         def relu(original, x):
@@ -316,10 +410,14 @@ class Kinks:
             self.sides.append(tuple(s.cpu() for s in sels))
             return mn, mx
 
-        return self._patched(relu, extrema)
+        def leaky(original, x, slope):
+            self.sides.append((x.detach() > 0).cpu())
+            return original(x, slope)
+
+        return self._patched(relu, extrema, leaky)
 
     def replay(self):
-        replayed_extrema, replayed_relu = _replayed_functions()
+        replayed_extrema, replayed_relu, replayed_leaky = _replayed_functions()
         given = iter(self.sides)
 
         def relu(original, x):
@@ -334,7 +432,12 @@ class Kinks:
             self.differ["min/max"] += int((own[0] != sel_min).sum() + (own[1] != sel_max).sum())
             return mn, mx
 
-        return self._patched(relu, extrema)
+        def leaky(original, x, slope):
+            active = next(given).to(x.device)
+            self.differ["relu"] += int(((x.detach() > 0) != active).sum())
+            return replayed_leaky.apply(x, active, slope)
+
+        return self._patched(relu, extrema, leaky)
 
 
 def time_ms(fn, flush, reps=30, warmup=5):
@@ -363,6 +466,10 @@ def _group(name):
     if any(k in name for k in ("count_kernel", "scan_kernel", "place_kernel",
                                "sort_small_kernel", "sort_medium_kernel", "order_large_kernel")):
         return "unsorted-id grouping (K2)"
+    if "block_ranges_kernel" in name:
+        return "block-skip ranges (K4 pass 1)"
+    if "tile_walk_kernel" in name:
+        return "block-skip walk (K4 pass 2)"
     if "multi_tensor_apply" in name:
         return "optimizer (foreach)"
     if "gemm" in name or "sm90" in name or "cutlass" in name or "matmul" in name:
@@ -492,6 +599,214 @@ def check_unsorted_kernel(dev, gen, host256, host512):
     return errs, timed
 
 
+def step_card_vs_cpu(model, cpu_model, host, batch, names, label, per_forward):
+    """One train step from ``model``'s weights on the card (K1 launched
+    ``per_forward`` times, nothing else) and on the CPU, the CPU's backward
+    on the card's side of every kink; raises unless the losses agree within
+    rtol 1e-5 and the gradient gap (:func:`grad_gap`) is <= 1. Returns
+    (kinks, card loss, card gradients, CPU gradients, gap, where, the
+    rounding-level tensors, the gap on the CPU's own sides)."""
+    from hydragnn_tpu_torch.graphs import GraphBatch
+    from hydragnn_tpu_torch.train import loss_and_grads
+
+    kinks = Kinks()
+    with kinks.record():
+        (loss, _, grads), _ = counted(lambda: loss_and_grads(copy.deepcopy(model), batch),
+                                      label, k1=per_forward, k2=0)
+    cpu_batch = GraphBatch.from_numpy(host, "cpu")
+    cpu_loss, _, raw_grads = loss_and_grads(copy.deepcopy(cpu_model), cpu_batch)
+    with kinks.replay():
+        _, _, cpu_grads = loss_and_grads(copy.deepcopy(cpu_model), cpu_batch)
+    # The same step in f64 on the CPU (same kink sides): what f32 can resolve.
+    truth_kinks = Kinks()
+    truth_kinks.sides = kinks.sides
+    with truth_kinks.replay():
+        _, _, truth = loss_and_grads(copy.deepcopy(cpu_model).double(), as_double(cpu_batch))
+    widen = f32_widening(cpu_grads, truth, names)
+    if not abs(float(loss) - float(cpu_loss)) <= 1e-5 * abs(float(cpu_loss)):
+        raise AssertionError(f"{label}: loss card {float(loss)} vs CPU {float(cpu_loss)}")
+    gap, where, noise = grad_gap(grads, cpu_grads, names, widen)
+    raw, raw_where, _ = grad_gap(grads, raw_grads, names, widen)
+    print(f"{label}: loss {float(loss):.7f} / {float(cpu_loss):.7f}; gradient gap {gap:.4f} "
+          f"at {where} on the card's side of every kink (the CPU's own side differed at "
+          f"{kinks.differ['relu']} ReLU and {kinks.differ['min/max']} min/max entries; gap on "
+          f"its own sides {raw:.4f} at {raw_where}); f32-limited, max|g| widened "
+          f"{ {k: round(v, 3) for k, v in widen.items()} }")
+    if gap > 1.0:
+        raise AssertionError(f"{label}: gradients card vs CPU gap {gap:.3f} > 1 at {where}")
+    return kinks, loss, grads, cpu_grads, gap, where, noise, raw
+
+
+def check_skip_kernel(dev, gen, host256, host512):
+    """Phase 2c: the block-skip kernel K4 against its plain version, and
+    against K2/K3, on the same inputs: the reference test's id patterns,
+    the flagship's CSR-less shapes (masked receivers at F=1, 6, 64, 256 and
+    384; the receivers of messages that pass no mask, whose padding edges
+    all name the padding node, at F=1 and 384) and edge cases. Counts must
+    be bit-equal, two launches bit-identical, and every sum within 1e-5 x
+    that element's sum of |x| of both. Returns the largest error and the
+    cases that phase 6 times."""
+    import torch
+
+    from hydragnn_tpu_torch.ops import segment_sum_count as ssc
+
+    def randn(*shape):
+        return torch.randn(*shape, device=dev, generator=gen)
+
+    def masked(ids, mask):
+        ids = torch.from_numpy(ids).to(dev)
+        return torch.where(torch.from_numpy(mask).to(dev), ids, torch.full_like(ids, -1)).contiguous()
+
+    n256, e256 = host256.num_nodes_pad, host256.num_edges_pad
+    n512, e512 = host512.num_nodes_pad, host512.num_edges_pad
+    e_ids = masked(host256.receivers, host256.edge_mask)
+    raw_ids = torch.from_numpy(host256.receivers).to(dev).contiguous()
+    w_ids = masked(host512.receivers, host512.edge_mask)
+    rng = np.random.default_rng(17)
+    contiguous = np.sort(rng.integers(0, 300, 1400)).astype(np.int32)
+    scattered = rng.integers(0, 300, 1400).astype(np.int32)
+    keep = rng.random(1400) > 0.2
+    hub = torch.cat([torch.full((20000,), 5, device=dev, dtype=torch.int32),
+                     torch.randint(0, 100, (3000,), device=dev, generator=gen, dtype=torch.int32)])
+    hub = hub[torch.randperm(hub.shape[0], device=dev, generator=gen)].contiguous()
+    sparse = torch.sort(torch.randint(0, 4000, (30000,), device=dev, generator=gen,
+                                      dtype=torch.int32)).values.contiguous()
+    unaligned = torch.empty(e256 * 64 + 1, device=dev)[1:].view(e256, 64)  # 4-byte offset
+    unaligned.copy_(randn(e256, 64))
+    timed = [
+        ("no CSR F=64, masked receivers, 256 graphs", randn(e256, 64), e_ids, n256),
+        ("no CSR F=1, masked receivers, 256 graphs", randn(e256, 1), e_ids, n256),
+        ("no CSR F=384 (GAT messages), unmasked receivers, 256 graphs", randn(e256, 384),
+         raw_ids, n256),
+        ("no CSR F=1 (CGCNN), unmasked receivers, 256 graphs", randn(e256, 1), raw_ids, n256),
+    ]
+    cases = timed + [
+        ("reference contiguous ids 1400x300x10", randn(1400, 10),
+         torch.from_numpy(contiguous).to(dev), 300),
+        ("reference scattered ids 1400x300x10", randn(1400, 10),
+         torch.from_numpy(scattered).to(dev), 300),
+        ("reference masked ids 1400x300x10", randn(1400, 10),
+         masked(contiguous, keep), 300),
+        ("no CSR F=6 (GAT denominator), masked receivers", randn(e256, 6), e_ids, n256),
+        ("no CSR F=384, masked receivers", randn(e256, 384), e_ids, n256),
+        ("no CSR F=256, 512 graphs", randn(e512, 256), w_ids, n512),
+        ("20000-edge hub F=64 (scattered)", randn(hub.shape[0], 64), hub, 100),
+        ("half the segments empty F=64", randn(30000, 64), sparse, 8192),
+        ("every row masked F=64", randn(e256, 64), torch.full_like(e_ids, -1), n256),
+        ("F=64 unaligned (scalar loads)", unaligned, e_ids, n256),
+    ]
+    worst = 0.0
+    for name, data, ids, n in cases:
+        want_s, want_c = ssc.segment_sum_count_skip_plain(data, ids, n)
+        bound = ssc.segment_sum_count_plain(data.abs(), ids, n)[0]
+        got_s, got_c = ssc.segment_sum_count_skip_forward(data, ids, n)
+        again_s, again_c = ssc.segment_sum_count_skip_forward(data, ids, n)
+        k2_s, k2_c = ssc.segment_sum_count_forward(data, ids, n)
+        torch.cuda.synchronize()
+        for what, ref in (("its plain version", want_s), ("K2/K3", k2_s)):
+            diff = (got_s - ref).abs()
+            if not bool((diff <= 1e-5 * bound).all()):
+                excess = float((diff - 1e-5 * bound).max())
+                raise AssertionError(f"phase 2c {name}: sums vs {what} beyond 1e-5 x sum|x| "
+                                     f"(by {excess})")
+        if not (torch.equal(got_c, want_c) and torch.equal(got_c, k2_c)):
+            raise AssertionError(f"phase 2c {name}: counts differ")
+        if not (torch.equal(got_s, again_s) and torch.equal(got_c, again_c)):
+            raise AssertionError(f"phase 2c {name}: two launches differ (not deterministic)")
+        err = float((got_s - want_s).abs().max()) if got_s.numel() else 0.0
+        k2_err = float((got_s - k2_s).abs().max()) if got_s.numel() else 0.0
+        worst = max(worst, err)
+        print(f"phase 2c K4 {name}: N={n} E={data.shape[0]} kept={int(want_c.sum())} max abs "
+              f"err {err:.3e} vs plain, {k2_err:.3e} vs K2/K3 (each <= 1e-5 x its sum|x|), "
+              f"counts equal, bit-reproducible")
+    return worst, timed
+
+
+def families_phase(dev, graphs, host):
+    """Phase 7: the five other conv families at the flagship's widths
+    (hidden 64, 3 layers, the flagship heads, ``edge_dim=1``,
+    ``max_neighbours=20``), random weights from seed 0. Returns the K4
+    launches of their CSR-less forwards under the switch."""
+    import torch
+
+    from hydragnn_tpu_torch.graphs import GraphBatch
+    from hydragnn_tpu_torch.preprocess import GraphDataLoader
+    from hydragnn_tpu_torch.serve import InferenceEngine
+    from hydragnn_tpu_torch.train import TrainingDriver, train_validate_test
+    from hydragnn_tpu_torch.utils import select_optimizer
+
+    rng = np.random.default_rng(3)
+    sets = [make_graphs(k * BATCH_GRAPHS, rng) for k in (FAMILY_TRAIN_BATCHES, 1, 1)]
+    kw = dict(head_types=TYPES, head_dims=DIMS, edge_dim=1, seed=0)
+    top = (host.num_nodes_pad, host.num_edges_pad)
+    batch = GraphBatch.from_numpy(host, dev)
+    k4_total = 0
+    for family in FAMILIES:
+        t0 = time.perf_counter()
+        per_forward = launches_per_forward(family)
+        # GAT's attention dropout at 0 for the comparisons; the defaults
+        # (0.25) for the training run below.
+        model = build_model(64, "cuda", family, dropout=0.0)
+        engine = InferenceEngine(model, device="cuda", max_batch_graphs=256, max_delay_ms=20.0,
+                                 queue_limit=512, bucket_ladder=[top])
+        try:
+            res, launches, batches = serve_with_counts(
+                engine, lambda eng: eng.predict(unlabeled(graphs)), per_forward)
+        finally:
+            engine.close()
+        check_outputs(res, graphs, f"phase 7 {family} serve")
+        cpu_model = copy.deepcopy(model).to("cpu")
+        cpu_engine = InferenceEngine(cpu_model, device="cpu", max_batch_graphs=256,
+                                     max_delay_ms=20.0, queue_limit=512, bucket_ladder=[top])
+        try:
+            cpu_res = cpu_engine.predict(unlabeled(graphs))
+        finally:
+            cpu_engine.close()
+        gap = max_rel_gap(res, cpu_res)
+        if gap > 1.0:
+            raise AssertionError(f"phase 7 {family}: card vs CPU outputs gap {gap:.3f} > 1")
+
+        with torch.inference_mode():
+            csr_out = model(batch)
+            with skip_switch():
+                bare_out, bare = counted(lambda: model(without_pointers(batch)),
+                                         f"phase 7 {family} forward without CSR pointers, skip",
+                                         k1=0, k2=0, k4=per_forward)
+        bgap = max_rel_gap([real_rows(bare_out, host)], [real_rows(csr_out, host)])
+        if bgap > 1.0:
+            raise AssertionError(f"phase 7 {family}: K4 forward vs CSR forward gap {bgap:.3f} > 1")
+        k4_total += bare["k4"]
+
+        names = [n for n, _ in model.named_parameters()]
+        _, _, grads, _, sgap, swhere, noise, raw = step_card_vs_cpu(
+            model, cpu_model, host, batch, names, f"phase 7 {family} train step card vs CPU",
+            per_forward)
+
+        trained = build_model(64, "cuda", family)
+        loaders = [GraphDataLoader(sets[0], BATCH_GRAPHS, shuffle=True, **kw)] + [
+            GraphDataLoader(g, BATCH_GRAPHS, shuffle=False, **kw) for g in sets[1:]]
+        driver = TrainingDriver(trained, select_optimizer(trained, "adamw", 1e-3), device="cuda")
+        forwards = EPOCHS * (FAMILY_TRAIN_BATCHES + 2)
+        hist, tcounts = counted(lambda: train_validate_test(driver, *loaders, EPOCHS),
+                                f"phase 7 {family} training", k1=per_forward * forwards, k2=0)
+        losses = hist["total_loss_train"]
+        if not (np.isfinite(losses).all() and np.isfinite(hist["total_loss_val"]).all()):
+            raise AssertionError(f"phase 7 {family} training: non-finite history {hist}")
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"phase 7 {family} training: train loss did not fall: {losses}")
+        print(f"phase 7 {family}: serve {batches} batch forward(s), {launches} K1 launches "
+              f"({per_forward} per forward), card vs CPU gap {gap:.4f}; without CSR pointers "
+              f"under the skip switch {bare['k4']} K4 launches, 0 K1, 0 K2/K3, vs the CSR "
+              f"forward {bgap:.4f}; train step gradient gap {sgap:.4f} at {swhere} "
+              f"({len(grads)} tensors, rounding-level: {noise}; on the CPU's own sides "
+              f"{raw:.4f}); {EPOCHS} epochs x {FAMILY_TRAIN_BATCHES} train batches of "
+              f"{BATCH_GRAPHS} (dropout {trained.dropout if family == 'GAT' else 'n/a'}): "
+              f"{tcounts['k1']} K1 launches, train loss {[round(v, 6) for v in losses]}; "
+              f"{time.perf_counter() - t0:.1f} s")
+        del model, cpu_model, trained, driver
+    return k4_total
+
+
 def train_phase(dev):
     """Phase 5: the flagship model trained through the port's entry points
     on the card; returns what the later phases reuse."""
@@ -543,28 +858,9 @@ def train_phase(dev):
     worst, worst_where, worst_raw, differ = 0.0, None, 0.0, {"relu": 0, "min/max": 0}
     for b, host in enumerate(loaders[0]):
         step_batch = GraphBatch.from_numpy(host, dev)
-        kinks = Kinks()
-        with kinks.record():
-            (step_loss, _, step_grads), _ = counted(
-                lambda: loss_and_grads(copy.deepcopy(model), step_batch),
-                f"train step (batch {b})", k1=LAUNCHES_PER_FORWARD, k2=0)
-        cpu_batch = GraphBatch.from_numpy(host, "cpu")
-        cpu_loss, _, raw_grads = loss_and_grads(copy.deepcopy(cpu_model), cpu_batch)
-        with kinks.replay():
-            _, _, cpu_grads = loss_and_grads(copy.deepcopy(cpu_model), cpu_batch)
-        if not abs(float(step_loss) - float(cpu_loss)) <= 1e-5 * abs(float(cpu_loss)):
-            raise AssertionError(f"train step (batch {b}) loss card {float(step_loss)} vs "
-                                 f"CPU {float(cpu_loss)}")
-        gap, where, noise = grad_gap(step_grads, cpu_grads, names)
-        raw, raw_where, _ = grad_gap(step_grads, raw_grads, names)
-        print(f"phase 5 train step card vs CPU, batch {b}: loss {float(step_loss):.7f} / "
-              f"{float(cpu_loss):.7f}; gradient gap {gap:.4f} at {where} on the card's side "
-              f"of every kink (the CPU's own side differed at {kinks.differ['relu']} ReLU and "
-              f"{kinks.differ['min/max']} min/max entries; gap on its own sides {raw:.4f} at "
-              f"{raw_where})")
-        if gap > 1.0:
-            raise AssertionError(f"train step (batch {b}) gradients card vs CPU gap "
-                                 f"{gap:.3f} > 1 at {where}")
+        kinks, step_loss, step_grads, cpu_grads, gap, where, noise, raw = step_card_vs_cpu(
+            model, cpu_model, host, step_batch, names, f"phase 5 train step card vs CPU, batch {b}",
+            LAUNCHES_PER_FORWARD)
         if b == 0:
             batch, loss, grads, sides = step_batch, step_loss, step_grads, kinks.sides
             ratios = [float(g.abs().max()) for g in cpu_grads]
@@ -615,6 +911,8 @@ def main() -> int:
     from hydragnn_tpu_torch.utils import resolve_device, select_optimizer
 
     t_start = time.perf_counter()
+    # Phases 3-5 drive the switch-off routes; phase 7 turns it on itself.
+    os.environ.pop("HYDRAGNN_PALLAS_SKIP", None)
     dev = resolve_device("cuda")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -717,6 +1015,7 @@ def main() -> int:
               f"(<= 1e-5 x {scale:.3e}, {'max|sum|' if kind == 'sum' else 'max row sum|x|'}), "
               f"counts equal, bit-reproducible")
     unsorted_errs, timed2 = check_unsorted_kernel(dev, gen, host256, host512)
+    skip_err, timed_skip = check_skip_kernel(dev, gen, host256, host512)
 
     # ---- phase 3: serve the flagship model
     model = build_model(64, "cuda")
@@ -864,6 +1163,30 @@ def main() -> int:
                   f"({nbytes} B at 3.35 TB/s; N={n}, E={e}, kept {kept}), "
                   f"kernel/bound {k_ms / bound_ms:.1f}x")
 
+        skip_records = []
+        for name, data, ids, n in timed_skip:
+            e, f = data.shape
+            keep = (ids >= 0) & (ids < n)
+            kept = int(keep.sum())
+            idx, rows = ids[keep].long(), data[keep]
+            k_ms = time_ms(lambda: ssc.segment_sum_count_skip_forward(data, ids, n), flush)
+            k2_ms = time_ms(lambda: ssc.segment_sum_count_forward(data, ids, n), flush)
+            # Device time alone (the profiler, L2 not flushed): the CUDA-event
+            # times hold the host's launch gaps between the passes.
+            k_dev = profile_device(lambda: ssc.segment_sum_count_skip_forward(data, ids, n), 20)
+            k2_dev = profile_device(lambda: ssc.segment_sum_count_forward(data, ids, n), 20)
+            p_ms = time_ms(lambda: ssc.segment_sum_count_skip_plain(data, ids, n), flush)
+            l_ms = time_ms(lambda: torch.zeros(n, f, device=dev).index_add_(0, idx, rows), flush)
+            nbytes = e * 4 + kept * f * 4 + n * f * 4 + n * 4
+            bound_ms = max(nbytes / HBM_BYTES_PER_S, kept * f / F32_FLOPS) * 1e3
+            skip_records.append(dict(name=name, ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+                                     bound_ms=bound_ms, edges=e, f=f))
+            print(f"phase 6 K4 {name}: kernel {k_ms:.5f} ms ({k_dev}); K2/K3 "
+                  f"on the same ids {k2_ms:.5f} ms ({k2_dev}); plain "
+                  f"{p_ms:.5f} ms, index_add_ over the kept rows "
+                  f"{l_ms:.5f} ms, bound {bound_ms * 1e3:.3f} us ({nbytes} B at 3.35 TB/s; "
+                  f"N={n}, E={e}, kept {kept}), kernel/bound {k_ms / bound_ms:.1f}x")
+
         with torch.inference_mode():
             fwd_ms = time_ms(lambda: model(batch), flush, reps=20, warmup=3)
         lat = []
@@ -896,6 +1219,9 @@ def main() -> int:
         print(f"phase 6 train step breakdown (torch.profiler, 5 steps): {step_breakdown}")
     finally:
         engine.close()
+
+    # ---- phase 7: the other conv families
+    skip_k4 = families_phase(dev, g256, host256)
 
     head = records[0]
     k2, k3 = unsorted_records[64], unsorted_records[256]
@@ -933,11 +1259,27 @@ def main() -> int:
             "library_ms": rec["library_ms"],
             "shape": f"{rec['name']}: E={rec['edges']} F={rec['f']}",
         })
+    k4 = skip_records[0]
+    kernels.append({
+        "name": "segment_sum_count_skip (K4)",
+        "route": "cuda",
+        "source": "hydragnn_tpu_torch/ops/csrc/segment_skip.cu",
+        "replaces": "hydragnn_tpu/ops/pallas_segment.py:223",
+        "launches": skip_k4,
+        "max_abs_err": skip_err,
+        "ms": k4["ms"],
+        "plain_ms": k4["plain_ms"],
+        "bound_ms": k4["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": k4["library_ms"],
+        "shape": f"{k4['name']}: E={k4['edges']} F={k4['f']}",
+    })
     for k in kernels:
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']}: no launch on the main path")
     print(f"main-path launches: K1 serve {serve_k1} + train {train_k1}; unsorted-id F<=64 "
-          f"{unsorted_small}, F>64 {unsorted_wide}")
+          f"{unsorted_small}, F>64 {unsorted_wide}; K4 (the families' forwards without CSR "
+          f"pointers under the skip switch) {skip_k4}")
     print(f"total {time.perf_counter() - t_start:.1f} s; card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

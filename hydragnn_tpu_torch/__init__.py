@@ -8,9 +8,12 @@ reference's, so each module's counterpart is found at the same path:
 * ``preprocess`` — radius-graph construction (scipy ``cKDTree``) and the
   ``GraphDataLoader``;
 * ``ops``        — masked segment ops and the hand-written segment-sum
-  kernels: CSR runs (``ops/csrc/csr_segment.cu``) and unsorted ids
-  (``ops/csrc/segment_sum_count.cu``), with their gradients;
-* ``models``     — ``HydraGNN`` with PNA convolutions, its loss and factory;
+  kernels: CSR runs (``ops/csrc/csr_segment.cu``), unsorted ids
+  (``ops/csrc/segment_sum_count.cu``) and, under ``HYDRAGNN_PALLAS_SKIP=1``,
+  the block-skip kernel (``ops/csrc/segment_skip.cu``), with their
+  gradients;
+* ``models``     — ``HydraGNN`` with the six conv families (PNA, SAGE, GIN,
+  MFC, GATv2, CGCNN), its loss and factory;
 * ``train``      — the train and eval steps, ``TrainingDriver`` and
   ``train_validate_test``;
 * ``serve``      — the micro-batching ``InferenceEngine``;

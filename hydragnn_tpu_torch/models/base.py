@@ -1,6 +1,9 @@
-"""HydraGNN multi-headed GNN for ``conv_type="PNA"``.
+"""HydraGNN multi-headed GNN for the six conv families (``PNA``, ``MFC``,
+``GIN``, ``GAT``, ``CGCNN``, ``SAGE``).
 
-  encoder:  num_conv_layers × [conv → MaskedBatchNorm → ReLU]
+  encoder:  num_conv_layers × [conv → MaskedBatchNorm → ReLU]; GAT joins
+            its heads on every layer but the last (widths ``hidden *
+            heads``), which averages them; CGCNN keeps the input width
   readout:  masked mean over each graph's nodes (``graph_ptr`` runs, or
             the unsorted-id kernel when the batch carries no pointers)
   heads:    graph heads = shared MLP (``graph_shared``) + per-head MLP;
@@ -20,11 +23,10 @@ from torch import nn
 
 from ..graphs.batch import GraphBatch
 from ..ops import csr_segment
-from .convs import PNAConv
+from .convs import CGConv, GATv2Conv, GINConv, MFCConv, PNAConv, SAGEConv
 from .layers import MLP, MaskedBatchNorm
 
 CONV_TYPES = ("PNA", "MFC", "GIN", "GAT", "CGCNN", "SAGE")
-PORTED_CONV_TYPES = ("PNA",)
 
 
 class MLPNode(nn.Module):
@@ -57,17 +59,16 @@ class HydraGNN(nn.Module):
         task_weights: Tuple[float, ...] = (),
         initial_bias: Optional[float] = None,
         edge_dim: Optional[int] = None,
+        dropout: float = 0.25,
         pna_deg_avg_log: float = 1.0,
         pna_deg_avg_lin: float = 1.0,
+        mfc_max_degree: int = 10,
+        gat_heads: int = 6,
+        gat_negative_slope: float = 0.05,
     ):
         super().__init__()
         if conv_type not in CONV_TYPES:
             raise ValueError(f"Unknown conv_type {conv_type}")
-        if conv_type not in PORTED_CONV_TYPES:
-            raise NotImplementedError(
-                f"conv_type {conv_type!r} is not ported yet (ROADMAP A4); "
-                f"ported: {PORTED_CONV_TYPES}"
-            )
         self.conv_type = conv_type
         self.input_dim = int(input_dim)
         self.hidden_dim = int(hidden_dim)
@@ -76,17 +77,28 @@ class HydraGNN(nn.Module):
         self.num_conv_layers = int(num_conv_layers)
         self.task_weights = tuple(task_weights)
         self.edge_dim = edge_dim
+        self.dropout = float(dropout)
+        self._conv_kw = dict(
+            pna_deg_avg_log=pna_deg_avg_log, pna_deg_avg_lin=pna_deg_avg_lin,
+            mfc_max_degree=mfc_max_degree, gat_heads=gat_heads,
+            gat_negative_slope=gat_negative_slope,
+        )
 
-        dims = [self.input_dim] + [self.hidden_dim] * self.num_conv_layers
-        for i in range(self.num_conv_layers):
-            self.add_module(
-                f"conv_{i}",
-                PNAConv(
-                    dims[i], dims[i + 1], pna_deg_avg_log, pna_deg_avg_lin,
-                    generator=generator, edge_dim=edge_dim,
-                ),
-            )
-            self.add_module(f"bn_{i}", MaskedBatchNorm(dims[i + 1]))
+        if conv_type == "GAT":
+            h = gat_heads
+            last = max(self.num_conv_layers - 1, 1)
+            layers = [(self.input_dim, self.hidden_dim, True, self.hidden_dim * h)]
+            layers += [(self.hidden_dim * h, self.hidden_dim, True, self.hidden_dim * h)
+                       for _ in range(1, last)]
+            layers.append((self.hidden_dim * h, self.hidden_dim, False, self.hidden_dim))
+        else:
+            dims = [self.input_dim] + [self.enc_dim] * self.num_conv_layers
+            layers = [(dims[i], dims[i + 1], True, dims[i + 1])
+                      for i in range(self.num_conv_layers)]
+        self.num_encoder_layers = len(layers)
+        for i, (d_in, d_out, concat, bn_dim) in enumerate(layers):
+            self.add_module(f"conv_{i}", self._make_conv(d_in, d_out, generator, concat))
+            self.add_module(f"bn_{i}", MaskedBatchNorm(bn_dim))
 
         node_type = None
         if "node" in self.output_type:
@@ -111,7 +123,7 @@ class HydraGNN(nn.Module):
                     f"or 'reference', got {layout!r}"
                 )
             self.graph_shared = MLP(
-                self.hidden_dim,
+                self.enc_dim,
                 [gcfg["dim_sharedlayers"]] * gcfg["num_sharedlayers"],
                 generator=generator,
                 activate_final=True,
@@ -130,7 +142,7 @@ class HydraGNN(nn.Module):
             elif htype == "node":
                 ncfg = config_heads["node"]
                 head = MLPNode(
-                    self.hidden_dim,
+                    self.enc_dim,
                     tuple(ncfg["dim_headlayers"][: ncfg["num_headlayers"]]),
                     hdim,
                     generator=generator,
@@ -143,17 +155,47 @@ class HydraGNN(nn.Module):
     def use_edge_attr(self) -> bool:
         return self.edge_dim is not None and self.edge_dim > 0
 
-    def forward(self, batch: GraphBatch) -> List[torch.Tensor]:
+    @property
+    def enc_dim(self) -> int:
+        """Width of the encoder output: ``hidden_dim``, except for CGCNN,
+        which keeps the input's channels."""
+        return self.input_dim if self.conv_type == "CGCNN" else self.hidden_dim
+
+    def _make_conv(self, in_dim: int, out_dim: int, generator, concat: bool) -> nn.Module:
+        kw = self._conv_kw
+        ct = self.conv_type
+        if ct == "SAGE":
+            return SAGEConv(in_dim, out_dim, generator=generator)
+        if ct == "GIN":
+            return GINConv(in_dim, out_dim, generator=generator)
+        if ct == "MFC":
+            return MFCConv(in_dim, out_dim, kw["mfc_max_degree"], generator=generator)
+        if ct == "GAT":
+            return GATv2Conv(
+                in_dim, out_dim, generator=generator, heads=kw["gat_heads"],
+                negative_slope=kw["gat_negative_slope"], concat=concat,
+                dropout=self.dropout,
+            )
+        if ct == "CGCNN":
+            return CGConv(in_dim, generator=generator, edge_dim=self.edge_dim or 0)
+        return PNAConv(
+            in_dim, out_dim, kw["pna_deg_avg_log"], kw["pna_deg_avg_lin"],
+            generator=generator, edge_dim=self.edge_dim,
+        )
+
+    def forward(self, batch: GraphBatch, generator: Optional[torch.Generator] = None
+                ) -> List[torch.Tensor]:
         """Per-head outputs: graph heads ``[G_pad, dim]``, node heads
         ``[N_pad, dim]``; rows outside the masks are padding. In train mode
         the batch norms use the masked batch moments and update their
-        running averages in place."""
+        running averages in place, and GAT draws its attention dropout from
+        ``generator`` (a ``torch.Generator`` on the model's device)."""
         x = batch.node_features
         edge_attr = batch.edge_features if self.use_edge_attr else None
-        for i in range(self.num_conv_layers):
+        for i in range(self.num_encoder_layers):
             c = getattr(self, f"conv_{i}")(
                 x, batch.senders, batch.receivers, edge_attr,
-                batch.edge_mask, batch.node_mask, batch.row_ptr,
+                batch.edge_mask, batch.node_mask, batch.row_ptr, generator,
             )
             x = torch.relu(getattr(self, f"bn_{i}")(c, batch.node_mask))
 

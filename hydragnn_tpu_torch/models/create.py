@@ -1,5 +1,7 @@
 """Model factory: ``create_model`` with the reference's signature (the
-options this port covers), plus ``device=`` and ``generator=``."""
+options this port covers) and its family dispatch (PNA needs ``pna_deg``,
+MFC ``max_neighbours``, CGCNN keeps the input width), plus ``dropout=``,
+``device=`` and ``generator=``."""
 
 from __future__ import annotations
 
@@ -24,13 +26,20 @@ def create_model(
     num_conv_layers: int,
     *,
     initial_bias: Optional[float] = None,
+    max_neighbours: Optional[int] = None,
     edge_dim: Optional[int] = None,
     pna_deg: Optional[Sequence[float]] = None,
+    dropout: float = 0.25,
+    compute_dtype: Optional[str] = None,
+    remat: bool = False,
     device="cuda",
     generator: Optional[torch.Generator] = None,
 ) -> HydraGNN:
     """A ``HydraGNN`` in eval mode on ``device``, its weights drawn from
-    ``generator`` (a CPU ``torch.Generator``; seed 0 when omitted)."""
+    ``generator`` (a CPU ``torch.Generator``; seed 0 when omitted).
+    ``dropout`` is GAT's attention dropout in train mode (the reference
+    model's ``dropout`` field, 0.25 there too). ``remat`` and a
+    ``compute_dtype`` other than float32 raise: not ported yet."""
     dev = resolve_device(device)
     if len(task_weights) != len(output_dim):
         raise ValueError(
@@ -39,13 +48,24 @@ def create_model(
         )
     if model_type not in CONV_TYPES:
         raise ValueError("Unknown model_type: {0}".format(model_type))
-    if model_type != "PNA":
+    if remat:
+        raise NotImplementedError("remat is not ported yet (ROADMAP A4)")
+    if compute_dtype not in (None, "float32"):
         raise NotImplementedError(
-            f"model_type {model_type!r} is not ported yet (ROADMAP A4)"
+            f"compute_dtype={compute_dtype!r} is not ported yet (ROADMAP A4, A7)"
         )
-    if pna_deg is None:
-        raise ValueError("PNA requires degree input (pna_deg).")
-    avg_log, avg_lin = pna_degree_averages(pna_deg)
+    kwargs: Dict[str, Any] = {}
+    if model_type == "PNA":
+        if pna_deg is None:
+            raise ValueError("PNA requires degree input (pna_deg).")
+        avg_log, avg_lin = pna_degree_averages(pna_deg)
+        kwargs.update(pna_deg_avg_log=avg_log, pna_deg_avg_lin=avg_lin)
+    elif model_type == "MFC":
+        if max_neighbours is None:
+            raise ValueError("MFC requires max_neighbours input.")
+        kwargs.update(mfc_max_degree=int(max_neighbours))
+    elif model_type == "CGCNN":
+        hidden_dim = input_dim  # CGCNN keeps the input's channels
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     model = HydraGNN(
@@ -60,7 +80,7 @@ def create_model(
         task_weights=normalize_task_weights(task_weights),
         initial_bias=initial_bias,
         edge_dim=edge_dim,
-        pna_deg_avg_log=avg_log,
-        pna_deg_avg_lin=avg_lin,
+        dropout=dropout,
+        **kwargs,
     )
     return model.to(dev).eval()

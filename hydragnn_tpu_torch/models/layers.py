@@ -40,6 +40,17 @@ def dense(
     return lin
 
 
+def lecun_normal(shape: Sequence[int], generator: torch.Generator) -> nn.Parameter:
+    """A raw parameter initialised as flax's ``lecun_normal()``: truncated
+    normal, variance 1 / fan_in, where fan_in is ``shape[-2]`` times the
+    product of the leading axes (flax's fan rule: in axis -2, out axis -1)."""
+    fan_in = math.prod(shape[:-1]) if len(shape) > 1 else shape[0]
+    std = math.sqrt(1.0 / max(fan_in, 1)) / _TRUNC_STD
+    t = torch.empty(tuple(shape))
+    nn.init.trunc_normal_(t, std=std, a=-2 * std, b=2 * std, generator=generator)
+    return nn.Parameter(t)
+
+
 class MaskedBatchNorm(nn.Module):
     """BatchNorm whose statistics cover real rows only; padding rows come
     out zero. Running averages use momentum 0.9
@@ -56,7 +67,8 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(features))
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        x = x.to(torch.float32)
+        # At least f32; an f64 input stays f64 (an f64 reference step).
+        x = x.to(torch.promote_types(x.dtype, torch.float32))
         if self.training:
             mean = masked_mean(x, mask, axis=0)
             var = (masked_mean(x.square(), mask, axis=0) - mean.square()).clamp_min(0.0)

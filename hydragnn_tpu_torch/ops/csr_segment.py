@@ -18,7 +18,8 @@ The fused ops take the reference's routes (``_sorted_route``):
   owned by padding segments) every (sum, count) pass is
   :func:`csr_segment_sum_count`;
 * without it (``row_ptr=None``) masked rows get id -1 and every pass is
-  ``ops/segment_sum_count.py``'s unsorted-id kernel, which leaves them out.
+  ``ops/segment_sum_count.py``'s unsorted-id kernel, which leaves them out
+  (or its block-skip kernel, under ``HYDRAGNN_PALLAS_SKIP=1``).
 
 The ops are :func:`fused_segment_sum_count`, :func:`fused_segment_sum`,
 :func:`fused_segment_mean` (the readout mean pool), :func:`fused_segment_stats`

@@ -62,7 +62,9 @@ class EpochMetrics:
 
 class TrainingDriver:
     """Owns one model's training: the train pass and evaluation. ``model``
-    and the optimizer's parameters must already be on ``device``."""
+    and the optimizer's parameters must already be on ``device``. The train
+    steps draw dropout from one ``torch.Generator`` on ``device``
+    (``self.generator``, seed 0)."""
 
     def __init__(
         self,
@@ -92,6 +94,9 @@ class TrainingDriver:
         self.model = model
         self.optimizer = optimizer
         self.verbosity = verbosity
+        # Dropout bits for the train steps (GAT's attention dropout), drawn
+        # on the device from seed 0, as the reference's PRNGKey(0).
+        self.generator = torch.Generator(device=self.device).manual_seed(0)
 
     def train_epoch(self, loader):
         """One pass over ``loader`` (host batches); returns ``(loss, per-head
@@ -99,7 +104,9 @@ class TrainingDriver:
         metrics = EpochMetrics()
         for host in loader:
             batch = GraphBatch.from_numpy(host, self.device)
-            metrics.update(train_step(self.model, self.optimizer, batch))
+            metrics.update(
+                train_step(self.model, self.optimizer, batch, generator=self.generator)
+            )
         return metrics.averages()
 
     def evaluate(self, loader, return_values: bool = False):

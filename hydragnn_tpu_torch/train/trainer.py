@@ -19,7 +19,7 @@ metrics stay on the device.
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -29,15 +29,16 @@ from ..models.loss import multihead_rmse_loss
 
 
 def loss_and_grads(
-    model: nn.Module, batch: GraphBatch
+    model: nn.Module, batch: GraphBatch, generator: Optional[torch.Generator] = None
 ) -> Tuple[torch.Tensor, torch.Tensor, List[torch.Tensor]]:
     """Train-mode forward and backward: ``(loss, per-head RMSE, one gradient
     per parameter in ``model.parameters()`` order)``. A parameter the loss
     does not reach gets zeros, as in ``jax.grad``. Updates the batch norms'
-    running statistics."""
+    running statistics. ``generator`` (on the model's device) draws GAT's
+    attention dropout."""
     model.train()
     params = list(model.parameters())
-    outputs = model(batch)
+    outputs = model(batch, generator)
     loss, rmses = multihead_rmse_loss(
         outputs, batch, model.output_type, model.task_weights
     )
@@ -57,12 +58,14 @@ def train_step(
     optimizer: torch.optim.Optimizer,
     batch: GraphBatch,
     guard: bool = False,
+    generator: Optional[torch.Generator] = None,
 ) -> Dict[str, torch.Tensor]:
     """One gradient step on ``batch``; returns the step's metrics as device
     tensors: ``loss`` and ``rmses`` weighted by ``count`` (real graphs), and
-    with ``guard`` also ``bad`` (1.0 on a skipped step)."""
+    with ``guard`` also ``bad`` (1.0 on a skipped step). ``generator`` draws
+    the dropout (:func:`loss_and_grads`)."""
     stats = [b.detach().clone() for b in model.buffers()] if guard else None
-    loss, rmses, grads = loss_and_grads(model, batch)
+    loss, rmses, grads = loss_and_grads(model, batch, generator)
     count = batch.count_real_graphs().to(torch.float32)
     if guard and not bool(_all_finite(loss, grads)):
         with torch.no_grad():

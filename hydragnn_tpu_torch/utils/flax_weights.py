@@ -7,6 +7,9 @@ submodules carry the flax names, so each leaf maps to one tensor:
 * ``params/.../<Dense>/kernel [in, out]`` → ``<Dense>.weight [out, in]``;
 * ``params/.../<Dense>/bias`` → ``<Dense>.bias``;
 * ``params/bn_{i}/scale`` and ``bias`` → ``bn_{i}.weight`` and ``.bias``;
+* the raw parameters of the conv families, as they are (no transpose):
+  GIN's scalar ``eps``, MFC's ``w_self`` / ``w_nbr`` ``[d, F, F']`` and
+  ``bias`` ``[d, F']``, GAT's ``att`` ``[heads, F']`` and ``bias``;
 * ``batch_stats/bn_{i}/mean`` and ``var`` → ``bn_{i}.running_mean`` and
   ``.running_var``.
 
@@ -23,7 +26,10 @@ import numpy as np
 import torch
 from torch import nn
 
-_PARAM_LEAVES = {"kernel": "weight", "bias": "bias", "scale": "weight"}
+_PARAM_LEAVES = {
+    "kernel": "weight", "bias": "bias", "scale": "weight",
+    "eps": "eps", "w_self": "w_self", "w_nbr": "w_nbr", "att": "att",
+}
 _STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
 
 
@@ -53,7 +59,7 @@ def flax_to_state_dict(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             key = ".".join(path[:-1] + (names[leaf],))
             if key in out:
                 raise KeyError(f"flax leaf {collection}/{'/'.join(path)} maps onto {key} twice")
-            out[key] = torch.from_numpy(np.ascontiguousarray(arr))
+            out[key] = torch.from_numpy(np.array(arr, order="C"))  # keeps 0-d shapes
     return out
 
 

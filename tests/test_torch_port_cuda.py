@@ -1,6 +1,8 @@
 """The PyTorch port's CUDA kernels on the card: ``csr_segment_sum_count``
-(K1) and ``segment_sum_count`` (the unsorted-id kernel) against their plain
-PyTorch versions, their gradients, input checks and launch counts.
+(K1), ``segment_sum_count`` (the unsorted-id kernel, K2/K3) and
+``segment_sum_count_skip_forward`` (the block-skip kernel, K4) against
+their plain PyTorch versions, their gradients, input checks and launch
+counts.
 
 Every test here needs an NVIDIA GPU and ``nvcc`` (marker ``cuda``) and skips
 without one. This file imports no JAX, so it runs where the port runs:
@@ -10,8 +12,8 @@ without one. This file imports no JAX, so it runs where the port runs:
 (``--noconftest``: the suite's conftest imports JAX). Tolerance: the kernels
 add each segment in edge order, the plain versions through ``index_add_``,
 so sums may differ in f32 rounding: max abs diff <= 1e-5 x max|sum| (K1),
-and <= 1e-5 x the element's sum of |x| (the unsorted-id kernel, whose
-20000-edge hub sums many terms). Counts are exact; gradients are gathers,
+and <= 1e-5 x the element's sum of |x| (K2/K3 and K4, whose 20000-edge
+hubs sum many terms). Counts are exact; gradients are gathers,
 so they are equal."""
 
 import os
@@ -214,3 +216,112 @@ def pytest_unsorted_kernel_rejects_bad_inputs(dev, bad):
     with pytest.raises((TypeError, ValueError)):
         ssc.segment_sum_count_forward(data, ids, 20)
     assert ssc.KERNEL_LAUNCHES == before
+
+
+def _ascending(dev, e, n, f, seed, kept=0.6, pad_row=None):
+    """Collation-like ids: ascending receivers over the first ``kept`` share
+    of the rows; the rest masked (-1), or on ``pad_row`` when given (the
+    padding edges of messages that pass no mask)."""
+    rng = np.random.default_rng(seed)
+    real = int(e * kept)
+    ids = np.full(e, -1 if pad_row is None else pad_row, dtype=np.int32)
+    ids[:real] = np.sort(rng.integers(0, max(n - 2, 1), real))
+    data = torch.from_numpy(rng.normal(size=(e, f)).astype(np.float32)).to(dev)
+    return data, torch.from_numpy(ids).to(dev)
+
+
+@pytest.mark.parametrize("f", [1, 6, 33, 64, 256, 384])
+@pytest.mark.parametrize(
+    "case", ["ascending", "ascending_pad_row", "scattered", "masked", "hub", "tiny"]
+)
+def pytest_skip_kernel_matches_plain(dev, case, f):
+    """K4 (the block-skip kernel) against its plain version: counts equal,
+    sums within 1e-5 x each element's sum of |x|, two launches
+    bit-identical, and within the same bound of K2/K3 on the same input."""
+    if case == "ascending":
+        data, ids = _ascending(dev, 32768, 8192, f, seed=f)
+        n = 8192
+    elif case == "ascending_pad_row":
+        data, ids = _ascending(dev, 32768, 8192, f, seed=f, pad_row=8191)
+        n = 8192
+    elif case == "scattered":
+        data, ids = _unsorted(dev, 5000, 1200, f, seed=f)
+        n = 1200
+    elif case == "masked":
+        data, ids = _unsorted(dev, 3000, 500, f, seed=f, masked=1.0)
+        n = 500
+    elif case == "hub":
+        data, ids = _unsorted(dev, 3000, 100, f, seed=f, hub=20000)
+        n = 100
+    else:
+        data, ids = _unsorted(dev, 40, 300, f, seed=f)
+        n = 300
+    want_s, want_c = ssc.segment_sum_count_skip_plain(data, ids, n)
+    bound = ssc.segment_sum_count_plain(data.abs(), ids, n)[0]
+    before = ssc.SKIP_LAUNCHES
+    got_s, got_c = ssc.segment_sum_count_skip_forward(data, ids, n)
+    again_s, again_c = ssc.segment_sum_count_skip_forward(data, ids, n)
+    k2_s, k2_c = ssc.segment_sum_count_forward(data, ids, n)
+    torch.cuda.synchronize()
+    assert ssc.SKIP_LAUNCHES == before + 2
+    assert got_s.shape == (n, f) and got_c.shape == (n,)
+    assert torch.equal(got_c, want_c) and torch.equal(got_c, k2_c)
+    assert bool(((got_s - want_s).abs() <= 1e-5 * bound).all())
+    assert bool(((got_s - k2_s).abs() <= 1e-5 * bound).all())
+    assert torch.equal(again_s, got_s) and torch.equal(again_c, got_c)
+
+
+def pytest_skip_kernel_edge_cases(dev):
+    """Ids past the last segment, an unaligned data pointer (scalar loads),
+    and no edges at all."""
+    data, ids = _ascending(dev, 4000, 700, 64, seed=11, pad_row=699)
+    past = ids.clone()
+    past[::7] = 700 + 3
+    want_s, want_c = ssc.segment_sum_count_skip_plain(data, past, 700)
+    got_s, got_c = ssc.segment_sum_count_skip_forward(data, past, 700)
+    assert torch.equal(got_c, want_c)
+    assert float((got_s - want_s).abs().max()) <= 1e-5 * float(want_s.abs().max())
+    unaligned = torch.empty(4000 * 64 + 1, device=dev)[1:].view(4000, 64)
+    unaligned.copy_(data)
+    a, _ = ssc.segment_sum_count_skip_forward(data, ids, 700)
+    b, _ = ssc.segment_sum_count_skip_forward(unaligned, ids, 700)
+    s, c = ssc.segment_sum_count_skip_forward(data[:0], ids[:0], 700)
+    torch.cuda.synchronize()
+    assert float((a - b).abs().max()) <= 1e-5 * float(a.abs().max())
+    assert not s.any() and not c.any()
+
+
+def pytest_skip_switch_routes_to_k4(dev, monkeypatch):
+    """Under HYDRAGNN_PALLAS_SKIP=1 the (sum, count) wrapper launches K4 and
+    not K2/K3; its gradient is the gather, equal to the CPU's."""
+    monkeypatch.setenv("HYDRAGNN_PALLAS_SKIP", "1")
+    data, ids = _ascending(dev, 5000, 900, 16, seed=12)
+    weight = torch.randn(900, 16, device=dev, generator=torch.Generator(dev).manual_seed(13))
+    k2, k4 = ssc.KERNEL_LAUNCHES, ssc.SKIP_LAUNCHES
+    grads = []
+    for d, i, w in ((data, ids, weight), (data.cpu(), ids.cpu(), weight.cpu())):
+        d = d.clone().requires_grad_(True)
+        total, count = ssc.segment_sum_count(d, i, 900)
+        assert total.grad_fn is not None and not count.requires_grad
+        (g,) = torch.autograd.grad((total * w).sum(), d)
+        grads.append(g)
+    torch.cuda.synchronize()
+    assert (ssc.KERNEL_LAUNCHES, ssc.SKIP_LAUNCHES) == (k2, k4 + 1)
+    assert torch.equal(grads[0].cpu(), grads[1])
+
+
+@pytest.mark.parametrize("bad", ["cpu_ids", "double", "int64_ids", "short_ids"])
+def pytest_skip_kernel_rejects_bad_inputs(dev, bad):
+    data, ids = _unsorted(dev, 100, 20, 8, seed=2)
+    if bad == "cpu_ids":
+        ids = ids.cpu()
+    elif bad == "double":
+        data = data.double()
+    elif bad == "int64_ids":
+        ids = ids.long()
+    else:
+        ids = ids[:-1]
+    before = ssc.SKIP_LAUNCHES
+    with pytest.raises((TypeError, ValueError)):
+        ssc.segment_sum_count_skip_forward(data, ids, 20)
+    assert ssc.SKIP_LAUNCHES == before

@@ -66,7 +66,8 @@ def pytest_package_imports_with_jax_blocked():
     assert on_disk <= names, sorted(on_disk - names)
     assert {"hydragnn_tpu_torch.train.trainer", "hydragnn_tpu_torch.train.train_validate_test",
             "hydragnn_tpu_torch.utils.optimizer", "hydragnn_tpu_torch.preprocess.dataloader",
-            "hydragnn_tpu_torch.ops.segment_sum_count"} <= names
+            "hydragnn_tpu_torch.ops.segment_sum_count", "hydragnn_tpu_torch.models.convs",
+            "hydragnn_tpu_torch.models.base", "hydragnn_tpu_torch.models.layers"} <= names
 
 
 @pytest.mark.parametrize("where", ["repo", "alone"])

@@ -259,14 +259,16 @@ def pytest_kernel_layout_is_transposed():
 
 
 @pytest.mark.parametrize(
-    "what", ["GIN", "mlp_per_node", "conv_head", "default_device"]
+    "what", ["remat", "compute_dtype", "mlp_per_node", "conv_head", "default_device"]
 )
 def pytest_unported_options_raise(what):
     cfg = CONFIGS["flagship"]
     heads = {k: dict(v) for k, v in cfg["heads"].items()}
     model_type, kw = "PNA", dict(device="cpu")
-    if what == "GIN":
-        model_type = "GIN"
+    if what == "remat":
+        kw["remat"] = True
+    elif what == "compute_dtype":
+        kw["compute_dtype"] = "bfloat16"
     elif what == "mlp_per_node":
         heads["node"]["type"] = "mlp_per_node"
     elif what == "conv_head":
