@@ -5,10 +5,10 @@ node_mask, row_ptr, generator=None)`` with ``x [N_pad, F]``,
 ``senders``/``receivers`` ``[E_pad]`` int, ``edge_attr [E_pad, D]`` or None,
 ``row_ptr [N_pad + 1]`` int32 (the CSR contract, ``graphs/csr.py``) or None,
 and ``generator`` a ``torch.Generator`` on the model's device for GAT's
-attention dropout in train mode. Every aggregation's (sum, count) passes
-run through ``ops/csr_segment.py``: the CSR kernel K1 with ``row_ptr``;
-without it the unsorted-id kernel K2/K3, or K4 under
-``HYDRAGNN_PALLAS_SKIP=1``. Each class is the counterpart of the one of
+attention dropout in train mode. Every aggregation runs through
+``ops/csr_segment.py``: with ``row_ptr`` the CSR kernel K1 (PNA's stats
+bundle, min and max included: the CSR stats kernel K5); without it the
+unsorted-id kernel K2/K3, or K4 under ``HYDRAGNN_PALLAS_SKIP=1``. Each class is the counterpart of the one of
 the same name in ``hydragnn_tpu/models/convs.py``, with the flax
 submodule and parameter names, so ``utils/flax_weights.py`` maps the
 reference's variables one to one.

@@ -1,9 +1,9 @@
-// The CSR run walk shared by the port's segment kernels: per-row (sum, count)
-// over the runs [row_ptr[n], row_ptr[n+1]) of a list of data rows.
-//
-// Row k of the list is data row k (csr_segment.cu: destination-sorted edges)
-// or data row perm[k] (segment_sum_count.cu: a permutation that groups
-// unsorted ids by segment), chosen at compile time by kGather.
+// The run walk of the unsorted-id kernel (segment_sum_count.cu, K2/K3):
+// per-row (sum, count) over the runs [row_ptr[n], row_ptr[n+1]) of a list
+// of data rows, row k of the list being data row perm[k] (a permutation
+// that groups unsorted ids by segment). Its column types (Cols) also serve
+// the block-skip kernel (segment_skip.cu). K1 and K5, whose rows come
+// sorted, walk with csr_lanes.cuh instead.
 //
 // Computes, for n < num_segments:
 //   sum[n, :] = sum over k in [row_ptr[n], row_ptr[n+1]) of data[row(k), :]
@@ -66,26 +66,16 @@ struct Cols<false> {
   static __device__ __forceinline__ void add(T& a, const T& b) { a += b; }
 };
 
-// The data row behind list entry k.
-template <bool kGather>
-__device__ __forceinline__ int row_at(const int* __restrict__ perm, int k) {
-  if constexpr (kGather) {
-    return __ldg(perm + k);
-  } else {
-    return k;
-  }
-}
-
 // Sum of list entries [a, b) (g groups per row) at column group c, in list
 // order.
-template <bool kVec4, bool kGather>
+template <bool kVec4>
 __device__ __forceinline__ typename Cols<kVec4>::T walk(
     const typename Cols<kVec4>::T* __restrict__ in,
     const int* __restrict__ perm, int a, int b, int g, int c) {
   typename Cols<kVec4>::T acc = Cols<kVec4>::zero();
 #pragma unroll 4
   for (int k = a; k < b; ++k) {
-    const size_t row = static_cast<size_t>(row_at<kGather>(perm, k));
+    const size_t row = static_cast<size_t>(__ldg(perm + k));
     Cols<kVec4>::add(acc, __ldg(in + row * g + c));
   }
   return acc;
@@ -107,7 +97,7 @@ __device__ __forceinline__ int row_of(const int* __restrict__ row_ptr, int n,
   return lo;
 }
 
-template <bool kVec4, bool kGather>
+template <bool kVec4>
 __global__ void __launch_bounds__(kWarp * kRowsPerBlock)
 long_run_partials_kernel(const typename Cols<kVec4>::T* __restrict__ in,
                          const int* __restrict__ perm,
@@ -131,7 +121,7 @@ long_run_partials_kernel(const typename Cols<kVec4>::T* __restrict__ in,
     const int b = min(t, c1);
     for (int c = lane; c < g; c += kWarp) {
       head[static_cast<size_t>(k) * g + c] =
-          walk<kVec4, kGather>(in, perm, c0, b, g, c);
+          walk<kVec4>(in, perm, c0, b, g, c);
     }
   }
   if (t < c1) {  // else the run holding c0 also holds the chunk's last entry
@@ -142,12 +132,12 @@ long_run_partials_kernel(const typename Cols<kVec4>::T* __restrict__ in,
   if (t - s > kChunk && s >= c0) {
     for (int c = lane; c < g; c += kWarp) {
       tail[static_cast<size_t>(k) * g + c] =
-          walk<kVec4, kGather>(in, perm, s, c1, g, c);
+          walk<kVec4>(in, perm, s, c1, g, c);
     }
   }
 }
 
-template <bool kVec4, bool kGather>
+template <bool kVec4>
 __global__ void __launch_bounds__(kWarp * kRowsPerBlock)
 csr_sum_count_kernel(const typename Cols<kVec4>::T* __restrict__ in,
                      const int* __restrict__ perm,
@@ -165,7 +155,7 @@ csr_sum_count_kernel(const typename Cols<kVec4>::T* __restrict__ in,
   typename Cols<kVec4>::T* __restrict__ out = sum + static_cast<size_t>(row) * g;
   if (t - s <= kChunk) {
     for (int c = lane; c < g; c += kWarp) {
-      out[c] = walk<kVec4, kGather>(in, perm, s, t, g, c);
+      out[c] = walk<kVec4>(in, perm, s, t, g, c);
     }
     return;
   }
@@ -182,7 +172,7 @@ csr_sum_count_kernel(const typename Cols<kVec4>::T* __restrict__ in,
   }
 }
 
-template <bool kVec4, bool kGather>
+template <bool kVec4>
 void launch_walk(const float* data, const int* perm, const int* row_ptr,
                  float* sum, float* count, float* scratch, int num_segments,
                  int num_chunks, int g, cudaStream_t s) {
@@ -193,27 +183,26 @@ void launch_walk(const float* data, const int* perm, const int* row_ptr,
   const dim3 block(kWarp * kRowsPerBlock);
   if (num_chunks > 0) {
     const dim3 grid((num_chunks + kRowsPerBlock - 1) / kRowsPerBlock);
-    long_run_partials_kernel<kVec4, kGather><<<grid, block, 0, s>>>(
+    long_run_partials_kernel<kVec4><<<grid, block, 0, s>>>(
         in, perm, row_ptr, head, tail, num_segments, num_chunks, g);
   }
   const dim3 grid((num_segments + kRowsPerBlock - 1) / kRowsPerBlock);
-  csr_sum_count_kernel<kVec4, kGather><<<grid, block, 0, s>>>(
+  csr_sum_count_kernel<kVec4><<<grid, block, 0, s>>>(
       in, perm, row_ptr, head, tail, reinterpret_cast<T*>(sum), count,
       num_segments, g);
 }
 
 // (sum, count) over the runs of row_ptr, list entries of num_entries rows
 // (scratch: 2 * ceil(num_entries / kChunk) * f floats for the partials).
-template <bool kGather>
-void sum_count(const float* data, const int* perm, const int* row_ptr,
+inline void sum_count(const float* data, const int* perm, const int* row_ptr,
                float* sum, float* count, float* scratch, int num_segments,
                int num_entries, int f, bool vec4, cudaStream_t s) {
   const int num_chunks = (num_entries + kChunk - 1) / kChunk;
   if (vec4) {
-    launch_walk<true, kGather>(data, perm, row_ptr, sum, count, scratch,
+    launch_walk<true>(data, perm, row_ptr, sum, count, scratch,
                                num_segments, num_chunks, f / 4, s);
   } else {
-    launch_walk<false, kGather>(data, perm, row_ptr, sum, count, scratch,
+    launch_walk<false>(data, perm, row_ptr, sum, count, scratch,
                                 num_segments, num_chunks, f, s);
   }
 }

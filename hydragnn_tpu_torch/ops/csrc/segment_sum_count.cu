@@ -234,7 +234,7 @@ extern "C" int segment_sum_count_f32(const float* data, const int* ids,
     order_large_kernel<<<std::min(num_segments, 132), kScanThreads, 0, st>>>(
         ids, off, perm, num_edges, num_segments);
   }
-  csr_walk::sum_count<true>(data, perm, off, sum, count, fscratch,
+  csr_walk::sum_count(data, perm, off, sum, count, fscratch,
                             num_segments, num_edges, f, vec4 != 0, st);
   return static_cast<int>(cudaGetLastError());
 }

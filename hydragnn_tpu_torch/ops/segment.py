@@ -5,7 +5,9 @@ the data rows. Sums go through ``index_add_``, extrema through
 ``scatter_reduce(..., include_self=False)``. These are the port's
 counterpart of the reference's XLA segment ops (not kernels): the model's
 sums, means and stds go through ``ops/csr_segment.py`` (the kernels, with
-or without ``row_ptr``) instead, and min/max always come from here.
+or without ``row_ptr``) instead, and so do PNA's min and max with
+``row_ptr`` (K5); its min and max without ``row_ptr``, K5's plain version
+and GAT's softmax shift come from here.
 """
 
 from __future__ import annotations

@@ -28,12 +28,10 @@ when it is on, K2/K3 when it is off: the port runs eagerly, so this is its
 counterpart of the reference's read at trace time.
 
 The backward is the reference's ``_sum_count_bwd``, a gather:
-``d_data[e] = d_sum[ids[e]]`` for kept rows and 0 for the rest; the count
-has no gradient. The reference gathers ``d_sum[clip(ids, 0, N - 1)]`` for
-every row with ``id >= 0``, so a row with ``id >= num_segments``, which
-its forward drops, gets the last segment's cotangent there; the port gives
-it 0, the gradient of the forward it computes (ROADMAP C3). No model path
-feeds such ids.
+``d_data[e] = d_sum[clip(ids[e], 0, N - 1)]`` for every row with
+``id >= 0`` and 0 for the rest; the count has no gradient. So a row with
+``id >= num_segments``, which the forward drops, gets the last segment's
+cotangent, as in the reference (ROADMAP C3). No model path feeds such ids.
 """
 
 from __future__ import annotations
@@ -306,10 +304,11 @@ class _SegmentSumCount(torch.autograd.Function):
         n = ctx.num_segments
         if n == 0:
             return d_sum.new_zeros((ids.shape[0], d_sum.shape[1])), None, None
-        kept = _kept(ids, n)
-        idx = torch.where(kept, ids, torch.zeros_like(ids)).long()
+        # The reference's _sum_count_bwd: rows kept by id >= 0 alone, so a
+        # row past the last segment gathers d_sum[N - 1] (ROADMAP C3).
+        idx = ids.long().clamp(0, n - 1)
         zero = torch.zeros((), dtype=d_sum.dtype, device=d_sum.device)
-        return torch.where(kept[:, None], d_sum.index_select(0, idx), zero), None, None
+        return torch.where((ids >= 0)[:, None], d_sum.index_select(0, idx), zero), None, None
 
 
 def segment_sum_count(
@@ -317,6 +316,6 @@ def segment_sum_count(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`segment_sum_count_forward` (K2/K3, or K4 under the skip
     switch) with the reference's gather backward to ``data``
-    (``_sum_count_bwd``, rows with ``id >= num_segments`` at 0: ROADMAP
-    C3)."""
+    (``_sum_count_bwd``: a row with ``id >= num_segments`` gathers the last
+    segment's cotangent, ROADMAP C3)."""
     return _SegmentSumCount.apply(data, ids, num_segments)

@@ -1,5 +1,6 @@
 """The PyTorch port's CUDA kernels on the card: ``csr_segment_sum_count``
-(K1), ``segment_sum_count`` (the unsorted-id kernel, K2/K3) and
+(K1), ``csr_segment_stats_forward`` (the CSR stats kernel, K5),
+``segment_sum_count`` (the unsorted-id kernel, K2/K3) and
 ``segment_sum_count_skip_forward`` (the block-skip kernel, K4) against
 their plain PyTorch versions, their gradients, input checks and launch
 counts.
@@ -12,9 +13,14 @@ without one. This file imports no JAX, so it runs where the port runs:
 (``--noconftest``: the suite's conftest imports JAX). Tolerance: the kernels
 add each segment in edge order, the plain versions through ``index_add_``,
 so sums may differ in f32 rounding: max abs diff <= 1e-5 x max|sum| (K1),
-and <= 1e-5 x the element's sum of |x| (K2/K3 and K4, whose 20000-edge
-hubs sum many terms). Counts are exact; gradients are gathers,
-so they are equal."""
+and <= 1e-5 x the element's sum of |x| (K1's long runs, K2/K3 and K4,
+whose 20000-edge hubs sum many terms); K5's sum, mean and std within
+KERNEL_CERT_GATE.fwd (5e-4) of the f64 plain version, its min and max
+bit-equal. Counts are exact; gradients are gathers, so they are equal.
+
+``python tests/test_torch_port_cuda.py [runs]`` runs the stats gradient
+check ``runs`` times (default 50) on each route and prints every failure
+(ROADMAP C4)."""
 
 import os
 import sys
@@ -176,29 +182,176 @@ def pytest_unsorted_kernel_gradient_matches_plain(dev):
     assert torch.equal(grads[0].cpu(), grads[1])
 
 
-@pytest.mark.parametrize("with_ptr", [True, False], ids=["csr", "unsorted"])
-def pytest_stats_gradient_matches_cpu(dev, with_ptr):
-    """The PNA stats bundle's analytic backward on the card against the CPU,
-    on either route: within rtol 1e-4 + atol 1e-5 x max|g| (the forward
-    sums in another order)."""
-    data, row_ptr, ids = _case(dev, 6000, 1000, 32, seed=8, with_ids=True)
-    mask = torch.from_numpy(np.random.default_rng(9).random(6000) > 0.2).to(dev)
-    grads = []
+def stats_gradient_excess(dev, with_ptr, seed=8):
+    """The PNA stats bundle's gradient on the card (K5 with ``row_ptr``, the
+    unsorted-id kernel without) against the CPU's, on inputs made from
+    ``seed``: (the largest excess over rtol 1e-4 + atol 1e-5 x max|g|, a
+    description of the element where it is reached: its segment, the
+    segment's size, its centred value and the segment's std)."""
+    data, row_ptr, ids = _case(dev, 6000, 1000, 32, seed=seed, with_ids=True)
+    mask = torch.from_numpy(np.random.default_rng(seed + 1).random(6000) > 0.2).to(dev)
+    grads, stats = [], []
     for where in (dev, "cpu"):
         d = data.to(where).clone().requires_grad_(True)
-        total, mean, std, _ = csr_segment.fused_segment_stats(
+        total, mean, std, count = csr_segment.fused_segment_stats(
             d, ids.to(where), 1000, mask=mask.to(where),
             row_ptr=row_ptr.to(where) if with_ptr else None,
         )
         (g,) = torch.autograd.grad(total.sum() + mean.square().sum() + std.sum(), d)
         grads.append(g.cpu())
+        stats.append((mean.detach().cpu(), std.detach().cpu(), count.cpu()))
     tol = 1e-4 * grads[1].abs() + 1e-5 * float(grads[1].abs().max())
     excess = (grads[0] - grads[1]).abs() - tol
     e, c = divmod(int(excess.argmax()), excess.shape[1])
-    assert float(excess.max()) <= 0.0, (
-        f"row {e} (segment {int(ids[e])}, masked {not bool(mask[e])}) column {c}: card "
-        f"{float(grads[0][e, c])} vs CPU {float(grads[1][e, c])}, tolerance {float(tol[e, c])}"
+    seg = int(ids[e])
+    mean, std, count = stats[1]
+    x = float(data[e, c]) if bool(mask[e]) else 0.0
+    return float(excess.max()), (
+        f"row {e} (segment {seg} of {int(count[seg])} rows, masked {not bool(mask[e])}) "
+        f"column {c}: card {float(grads[0][e, c])} vs CPU {float(grads[1][e, c])}, tolerance "
+        f"{float(tol[e, c])}; centred value {x - float(mean[seg, c]):.3e}, std "
+        f"{float(std[seg, c]):.3e}"
     )
+
+
+@pytest.mark.parametrize("with_ptr", [True, False], ids=["csr", "unsorted"])
+def pytest_stats_gradient_matches_cpu(dev, with_ptr):
+    """The PNA stats bundle's analytic backward on the card against the CPU,
+    on either route: within rtol 1e-4 + atol 1e-5 x max|g| (the forward
+    sums in another order)."""
+    excess, where = stats_gradient_excess(dev, with_ptr)
+    assert excess <= 0.0, where
+
+
+def _runs(dev, lens, f, seed, off=3, extra=5):
+    """Runs of the given lengths from row ``off`` on, ``extra`` rows after."""
+    rng = np.random.default_rng(seed)
+    row_ptr = torch.tensor(np.concatenate([[0], np.cumsum(lens)]) + off, dtype=torch.int32,
+                           device=dev)
+    e = int(row_ptr[-1]) + extra
+    data = torch.from_numpy(rng.normal(size=(e, f)).astype(np.float32)).to(dev)
+    mask = torch.from_numpy(rng.random(e) > 0.25).to(dev)
+    return data, mask, row_ptr
+
+
+# Runs on both sides of every lane-group width and piece size (a sub-group
+# walks at most 32 entries of a run; longer runs are split into pieces
+# merged in a tree of fan-in 16), and a 20000-entry run.
+LANE_RUNS = [0, 1, 31, 32, 33, 128, 129, 0, 2, 20000, 7]
+
+
+@pytest.mark.parametrize("f", [1, 2, 3, 8, 16, 32, 33, 64, 65, 128, 384])
+def pytest_kernel_lane_group_shapes(dev, f):
+    """K1 at every lane-group width: sums within 1e-5 x the row's sum of
+    |x| (the f32 rounding bound of a 20000-term run), counts exact, two
+    launches bit-identical, one launch per call."""
+    data, _, row_ptr = _runs(dev, LANE_RUNS, f, seed=f)
+    n = len(LANE_RUNS)
+    want_s, want_c = csr_segment.csr_segment_sum_count_plain(data, row_ptr, n)
+    bound = csr_segment.csr_segment_sum_count_plain(data.abs(), row_ptr, n)[0]
+    before = csr_segment.KERNEL_LAUNCHES
+    got_s, got_c = csr_segment.csr_segment_sum_count_forward(data, row_ptr, n)
+    again, _ = csr_segment.csr_segment_sum_count_forward(data, row_ptr, n)
+    torch.cuda.synchronize()
+    assert csr_segment.KERNEL_LAUNCHES == before + 2
+    assert bool(((got_s - want_s).abs() <= 1e-5 * bound).all())
+    assert torch.equal(got_c, want_c)
+    assert torch.equal(again, got_s)
+
+
+KERNEL_CERT_FWD = 5e-4  # the reference's KERNEL_CERT_GATE.fwd (precision/tolerance.py)
+
+
+def _k5_case(dev, case, f):
+    rng = np.random.default_rng(f + len(case))
+    if case == "flagship":
+        data, row_ptr = _case(dev, 32768, 8192, f, seed=f)
+        mask = torch.from_numpy(rng.random(32768) > 0.43).to(dev)
+        return data, mask, row_ptr, 8192
+    if case == "hub":
+        data, mask, row_ptr = _runs(dev, [3] * 40 + [20000] + [5] * 40, f, seed=f)
+        return data, mask, row_ptr, 81
+    if case == "all_masked":
+        data, row_ptr = _case(dev, 5000, 700, f, seed=f)
+        return data, torch.zeros(5000, dtype=torch.bool, device=dev), row_ptr, 700
+    if case == "half_empty":
+        ids = np.sort(rng.integers(0, 4000, 30000)).astype(np.int32)
+        row_ptr = torch.from_numpy(build_row_ptr(ids, 8192)).to(dev)
+        data = torch.from_numpy(rng.normal(size=(30000, f)).astype(np.float32)).to(dev)
+        return data, torch.from_numpy(rng.random(30000) > 0.2).to(dev), row_ptr, 8192
+    data, row_ptr = _case(dev, 3000, 500, f, seed=f)  # "unaligned"
+    unaligned = torch.empty(3000 * f + 1, device=dev)[1:].view(3000, f)
+    unaligned.copy_(data)
+    return unaligned, torch.from_numpy(rng.random(3000) > 0.2).to(dev), row_ptr, 500
+
+
+@pytest.mark.parametrize("f", [1, 33, 64, 256])
+@pytest.mark.parametrize("case", ["flagship", "hub", "all_masked", "half_empty", "unaligned"])
+def pytest_stats_kernel_matches_plain(dev, case, f):
+    """K5 against its plain version: counts, min and max bit-equal; mean
+    and std within KERNEL_CERT_GATE.fwd of the f64 plain version, sums within
+    the larger of that and 1e-5 x their sum of |x| (the f32 rounding bound
+    of the hub's 20000-term run); two launches bit-identical; one K5 launch
+    per call and no K1 launch."""
+    data, mask, row_ptr, n = _k5_case(dev, case, f)
+    want = csr_segment.csr_segment_stats_plain(data, mask, row_ptr, n)
+    truth = csr_segment.csr_segment_stats_plain(data.double(), mask, row_ptr, n)
+    k1, k5 = csr_segment.KERNEL_LAUNCHES, csr_segment.STATS_LAUNCHES
+    got = csr_segment.csr_segment_stats_forward(data, mask, row_ptr, n)
+    again = csr_segment.csr_segment_stats_forward(data, mask, row_ptr, n)
+    torch.cuda.synchronize()
+    assert (csr_segment.KERNEL_LAUNCHES, csr_segment.STATS_LAUNCHES) == (k1, k5 + 2)
+    for name, a, b in zip(("count", "min", "max"), got[3:], want[3:]):
+        assert torch.equal(a, b), name
+    bound = csr_segment.csr_segment_sum_count_plain(data.abs().double(), row_ptr, n)[0]
+    assert bool(((got[0].double() - truth[0]).abs() <= (1e-5 * bound).clamp_min(KERNEL_CERT_FWD))
+                .all()), "sum"
+    for name, a, b in zip(("mean", "std"), got[1:3], truth[1:3]):
+        assert float((a.double() - b).abs().max()) <= KERNEL_CERT_FWD, name
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("f", [1, 64])
+def pytest_stats_kernel_options(dev, f):
+    """``want_std=False`` gives std 0 and ``want_extrema=False`` no min/max,
+    with the same sums and means; no mask keeps every row."""
+    data, mask, row_ptr, n = _k5_case(dev, "hub", f)
+    full = csr_segment.csr_segment_stats_forward(data, None, row_ptr, n)
+    bare = csr_segment.csr_segment_stats_forward(data, None, row_ptr, n, want_std=False,
+                                                 want_extrema=False)
+    want = csr_segment.csr_segment_stats_plain(data.double(), None, row_ptr, n)
+    torch.cuda.synchronize()
+    assert bare[4] is None and bare[5] is None and not bare[2].any()
+    assert torch.equal(bare[0], full[0]) and torch.equal(bare[1], full[1])
+    assert torch.equal(full[4], want[4].float()) and torch.equal(full[5], want[5].float())
+    assert float((full[2].double() - want[2]).abs().max()) <= KERNEL_CERT_FWD
+
+
+def pytest_pna_aggregate_on_k5_matches_cpu(dev):
+    """PNA's bundle with CSR pointers on the card is one K5 launch and no
+    K1 launch; its outputs and the gradient of ``msg`` equal the CPU's
+    within rtol 1e-4 + atol 1e-5 x max|g|."""
+    data, row_ptr, ids = _case(dev, 6000, 1000, 32, seed=21, with_ids=True)
+    mask = torch.from_numpy(np.random.default_rng(22).random(6000) > 0.2).to(dev)
+    weight = torch.from_numpy(np.random.default_rng(23).normal(size=(1000, 4, 32))
+                              .astype(np.float32))
+    outs, grads = [], []
+    for where in (dev, "cpu"):
+        d = data.to(where).clone().requires_grad_(True)
+        k1, k5 = csr_segment.KERNEL_LAUNCHES, csr_segment.STATS_LAUNCHES
+        agg, count = csr_segment.pna_aggregate(
+            d, ids.to(where), 1000, ("mean", "min", "max", "std"), mask=mask.to(where),
+            row_ptr=row_ptr.to(where))
+        launched = (csr_segment.KERNEL_LAUNCHES - k1, csr_segment.STATS_LAUNCHES - k5)
+        assert launched == ((0, 1) if where == dev else (0, 0))
+        (g,) = torch.autograd.grad((agg * weight.to(where)).sum(), d)
+        outs.append((agg.detach().cpu(), count.cpu()))
+        grads.append(g.cpu())
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0][1], outs[1][1])
+    torch.testing.assert_close(outs[0][0], outs[1][0], rtol=1e-4, atol=1e-5)
+    tol = 1e-4 * grads[1].abs() + 1e-5 * float(grads[1].abs().max())
+    assert bool(((grads[0] - grads[1]).abs() <= tol).all())
 
 
 @pytest.mark.parametrize("bad", ["cpu_ids", "double", "int64_ids", "short_ids"])
@@ -325,3 +478,28 @@ def pytest_skip_kernel_rejects_bad_inputs(dev, bad):
     with pytest.raises((TypeError, ValueError)):
         ssc.segment_sum_count_skip_forward(data, ids, 20)
     assert ssc.SKIP_LAUNCHES == before
+
+
+def c4_loop(runs):
+    """ROADMAP C4: :func:`stats_gradient_excess` ``runs`` times on each
+    route, each run on inputs of its own seed (every kernel on the path is
+    deterministic, so one input repeated is one sample), printing every
+    failure's worst element and the count."""
+    dev = torch.device("cuda", 0)
+    for with_ptr in (True, False):
+        failed = 0
+        worst = float("-inf")
+        for k in range(runs):
+            excess, where = stats_gradient_excess(dev, with_ptr, seed=1000 + 2 * k)
+            worst = max(worst, excess)
+            if excess > 0.0:
+                failed += 1
+                print(f"C4 {'csr' if with_ptr else 'unsorted'} run {k} (seed {1000 + 2 * k}): "
+                      f"excess {excess:.3e} at {where}")
+        print(f"C4 {'csr' if with_ptr else 'unsorted'}: {failed} of {runs} runs failed; largest "
+              f"excess over the tolerance {worst:.3e} (<= 0 passes)")
+
+
+if __name__ == "__main__":
+    # python tests/test_torch_port_cuda.py [runs]: the C4 loop on the card.
+    c4_loop(int(sys.argv[1]) if len(sys.argv) > 1 else 50)

@@ -280,12 +280,13 @@ def pytest_pna_aggregate_matches_jax(monkeypatch, pallas, aggregators):
            "fused_segment_stats"],
 )
 def pytest_fused_ops_require_row_ptr(monkeypatch, op):
-    """``row_ptr`` picks the kernel: with it every pass is the CSR kernel,
-    without it every pass is the unsorted-id kernel (``segment_sum_count``)
-    with masked rows at id -1; neither route falls back to the plain
-    segment ops."""
+    """``row_ptr`` picks the kernel: with it every (sum, count) is the CSR
+    kernel K1 and the stats one launch of the CSR stats kernel K5, without
+    it every pass is the unsorted-id kernel (``segment_sum_count``) with
+    masked rows at id -1; neither route falls back to the plain segment
+    ops."""
     _, t, n, real = _inputs(17)
-    calls = {"csr": 0, "ssc": 0}
+    calls = {"csr": 0, "k5": 0, "ssc": 0}
 
     def spy(name, fn):
         def wrapped(*a, **k):
@@ -295,14 +296,17 @@ def pytest_fused_ops_require_row_ptr(monkeypatch, op):
 
     monkeypatch.setattr(tcs, "csr_segment_sum_count_forward",
                         spy("csr", tcs.csr_segment_sum_count_forward))
+    monkeypatch.setattr(tcs, "csr_segment_stats_forward",
+                        spy("k5", tcs.csr_segment_stats_forward))
     monkeypatch.setattr(tcs.ssc, "segment_sum_count_forward",
                         spy("ssc", tcs.ssc.segment_sum_count_forward))
     monkeypatch.setattr(tcs.seg, "segment_sum", None)
     with_ptr = getattr(tcs, op)(t["data"], t["ids"], n, mask=t["mask"], row_ptr=t["row_ptr"])
-    passes = 2 if op == "fused_segment_stats" else 1
-    assert calls == {"csr": passes, "ssc": 0}
+    stats = op == "fused_segment_stats"
+    passes = 2 if stats else 1
+    assert calls == {"csr": 0 if stats else 1, "k5": 1 if stats else 0, "ssc": 0}
     without = getattr(tcs, op)(t["data"], t["ids"], n, mask=t["mask"])
-    assert calls == {"csr": passes, "ssc": passes}
+    assert calls == {"csr": 0 if stats else 1, "k5": 1 if stats else 0, "ssc": passes}
     for a, b in zip(with_ptr if isinstance(with_ptr, tuple) else (with_ptr,),
                     without if isinstance(without, tuple) else (without,)):
         np.testing.assert_allclose(a.numpy()[:real], b.numpy()[:real], rtol=RTOL, atol=ATOL)

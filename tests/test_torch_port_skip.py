@@ -205,9 +205,9 @@ def pytest_c3_gradient_at_ids_past_the_last_segment(monkeypatch):
     """ROADMAP C3. Rows with ``id >= num_segments`` are dropped by both
     forwards. The reference's ``_sum_count_bwd`` still gathers
     ``d_sum[clip(id, 0, N - 1)]`` for them (it masks only ``id < 0``), so they
-    get the last segment's cotangent; the port's backward gives them 0, the
-    gradient of the forward it computes. Both values on one input, under
-    the skip switch and without it."""
+    get the last segment's cotangent, and so does the port's backward: the
+    gradients are equal on every row, under the skip switch and without
+    it."""
     rng = np.random.default_rng(37)
     n, e, f = 50, 900, 4
     ids = rng.integers(0, n + 10, e).astype(np.int32)
@@ -224,11 +224,11 @@ def pytest_c3_gradient_at_ids_past_the_last_segment(monkeypatch):
         total, _ = ssc.segment_sum_count(d, torch.from_numpy(ids), n)
         (tg,) = torch.autograd.grad((total * torch.from_numpy(w)).sum(), d)
         tg = tg.numpy()
-        inside = (ids >= 0) & ~past
-        np.testing.assert_allclose(tg[inside], jg[inside], rtol=RTOL, atol=ATOL)
-        # The reference: the last segment's cotangent; the port: 0.
+        np.testing.assert_allclose(tg, jg, rtol=RTOL, atol=ATOL)
+        # Both: the last segment's cotangent past it, 0 at masked rows.
         np.testing.assert_allclose(jg[past], np.broadcast_to(w[n - 1], (past.sum(), f)))
-        assert not tg[past].any()
+        np.testing.assert_array_equal(tg[past], jg[past])
+        assert not tg[ids < 0].any()
         # Both forwards drop those rows.
         js, jc = jps.segment_sum_count(jnp.asarray(data), jnp.asarray(ids), n, interpret=True)
         np.testing.assert_array_equal(total.detach().numpy().shape, np.asarray(js).shape)
